@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--json PATH] [--profile]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
-toolkit (`nvcc`). Four phases; any failure exits non-zero and prints no
-result line:
+toolkit (`nvcc`). Phases; any failure exits non-zero and prints no result
+line:
 
 1. Build: compiles the port's CUDA kernels from `renderih_tpu_torch/csrc/`
    with nvcc for sm_90a (one nvcc per source, in parallel) and prints
@@ -20,16 +20,36 @@ result line:
    bytes moved (inputs read once, output written once) over 3.35 TB/s
    and the FLOPs over the peak for the input type (989 TFLOP/s bf16,
    67 TFLOP/s f32; H100 SXM data sheet).
-3. The main path: the flagship `Config()` (ResNet-50, bf16 encoder, f32
-   decoder) on synthetic assets with seeded random weights, served
-   through `InferenceEngine` + `BatchingServer` (64 single-image
-   requests) and one `predict` of 256 images. The launch counters must
-   rise by exactly 13 (B2) and 24 (B1) per forward. Then, in f32 with
-   TF32 off, the card's outputs are held against the same engine run on
-   the CPU (the plain versions) on the same weights and images.
-4. The result: a `{"kernels": [...]}` line (per-forward totals at batch
-   256, the flagship's dtypes), and as the last line
-   `{"ok": true, "device": {...}}`.
+3. The flagship path: `Config()` (ResNet-50, bf16 encoder, f32 decoder)
+   on synthetic assets with seeded random weights, served through
+   `InferenceEngine` + `BatchingServer` (64 single-image requests) and one
+   `predict` of 256 images. The launch counters must rise by exactly 13
+   (B2) and 24 (B1) per forward. Then, in f32 with TF32 off, the card's
+   outputs are held against the same engine run on the CPU (the plain
+   versions) on the same weights and images.
+4. B3 (SDF voxeliser) against its plain version on the card, on the
+   synthetic left hand posed at a seeded pose and on the unit cube, at
+   G = 16, 24, 32: max|Δ| of phi within 1e-5 + 1e-5·|ref|, inside flags
+   identical voxel for voxel, bbox and scale equal, kernel and plain
+   times (the kernel's launch alone, and with the wrapper's torch bbox
+   setup) and the bound (80 FLOP per (voxel, face) at 67 TFLOP/s, bytes
+   4·(3G³ + 9F + G³) at 3.35 TB/s: the Pallas kernel's cost estimate). No
+   single PyTorch call computes this field: library "none".
+5. The synthetic-data path: `synth_gen.main` on the card, 32 samples in
+   one batch of 32, each refined with 60 Adam iterations (4 attempts of
+   15, SDF grid 16). B3 must launch exactly 128 times per refined sample;
+   the dataset files must hold every label at its shape, finite; and the
+   mean SDF penetration of the samples that started interpenetrating (the
+   same seed generated without refinement) must fall. Prints refined
+   samples/s and generated images/s.
+6. Card against CPU on that path: one anchor-mode `optimize_two_hands`
+   (4 attempts of 3 iterations, G=16, f32, TF32 off) from one numpy-made
+   start on both: the objective and its gradient at the start tightly,
+   the final parameters, objective and weighted terms loosely (the
+   objective is piecewise smooth; `refine_parity_phase` states why).
+7. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+   batch 256 in the flagship's dtypes, B3 per refined sample), and as the
+   last line `{"ok": true, "device": {...}}`.
 
 All f32 comparisons run with TF32 off in cuDNN and cuBLAS
 (`torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -52,6 +72,13 @@ N_REQUESTS = 64
 CONV_TOL = {"bfloat16": (1e-2, 1.6e-2), "float32": (1e-4, 1e-4)}  # atol, rtol
 MHA_TOL = (1e-4, 1e-4)
 PATH_RTOL = 1e-4  # card vs CPU, relative to each output's max |value|
+SDF_TOL = (1e-5, 1e-5)  # atol, rtol: both sides do the same f32 arithmetic
+SDF_GRIDS = (16, 24, 32)
+SDF_FLOP_PER_PAIR = 80  # the Pallas kernel's cost estimate (sdf_pallas.py:164)
+SYNTH_N, SYNTH_ITERS, SYNTH_GRID = 32, 60, 16
+REFINE_SCHEDULE = ((1.0, 1.0, 3), (0.1, 15.0, 3), (30.0, 0.1, 3), (1.0, 5.0, 3))
+REFINE_LR = 1e-2
+DEVICE = "cuda"  # the card; a CPU rehearsal of phases 4-6 may set "cpu"
 
 
 def _gpu_line() -> str:
@@ -201,7 +228,7 @@ def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     import numpy as np
     import torch
 
-    from renderih_tpu_torch.kernels import conv3x3, fused_attention
+    from renderih_tpu_torch.kernels import conv3x3, fused_attention, sdf
     from renderih_tpu_torch.serve import BatchingServer, InferenceEngine
 
     size = cfg.model.img_size
@@ -214,8 +241,8 @@ def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     hook = engine.model.register_forward_pre_hook(
         lambda mod, args: forwards.__setitem__(0, forwards[0] + 1))
 
-    conv3x3.launches.reset()
-    fused_attention.launches.reset()
+    for counter in (conv3x3.launches, fused_attention.launches, sdf.launches):
+        counter.reset()
     server = BatchingServer(engine)
     try:
         futs = [server.submit(images[i]) for i in range(N_REQUESTS)]
@@ -230,13 +257,15 @@ def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
         out = engine.predict(images)
         rates.append(BATCH / (time.perf_counter() - t0))
     launches = {"conv3x3": conv3x3.launches.value,
-                "fused_mha": fused_attention.launches.value}
+                "fused_mha": fused_attention.launches.value,
+                "sdf_grid": sdf.launches.value}
     hook.remove()
 
     n_fwd = forwards[0]
     per_fwd = {"conv3x3": sum(n for _, _, n in conv_shapes(cfg)),  # 13
                "fused_mha": sum(n for _, _, n in mha_shapes(  # 24
-                   cfg, assets.left.verts_nums))}
+                   cfg, assets.left.verts_nums)),
+               "sdf_grid": 0}
     want = {k: n * n_fwd for k, n in per_fwd.items()}
     print(f"[path] {N_REQUESTS} requests in {n_served_batches} served batches + "
           f"predict({BATCH}): {n_fwd} forwards, launches {launches} "
@@ -263,25 +292,27 @@ def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     result = {"launches": launches, "forwards": n_fwd, "images_per_s": rate,
               "images_per_s_runs": rates}
     if profile:
-        result["profile"] = profile_phase(engine, images[:engine.buckets[-1]])
+        batch = images[:engine.buckets[-1]]
+        result["profile"] = profile_phase(f"predict({len(batch)})",
+                                          lambda: engine.predict(batch))
     del engine
     torch.cuda.empty_cache()
     return result
 
 
-def profile_phase(engine, images) -> dict:
-    """Device time by kernel over one flagship predict (torch.profiler):
-    only device-side events count (kernels, memcpy, memset), and the busy
-    time is the union of their intervals."""
+def profile_phase(label: str, fn) -> dict:
+    """Device time by kernel over one call of `fn` (torch.profiler): only
+    device-side events count (kernels, memcpy, memset), and the busy time
+    is the union of their intervals."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.predict(images)  # warm
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.predict(images)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
@@ -299,7 +330,7 @@ def profile_phase(engine, images) -> dict:
             last_end = end
     rows = sorted(((ms, c, n) for n, (ms, c) in by_name.items()), reverse=True)
     busy_ms = busy_us / 1e3
-    print(f"[profile] predict({len(images)}) under the profiler: wall {wall_ms:.2f} ms, "
+    print(f"[profile] {label} under the profiler: wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{len(spans)} device events; by kernel:", flush=True)
     for ms, count, name in rows[:30]:
@@ -339,8 +370,259 @@ def parity_phase(cfg, assets) -> dict:
     return errs
 
 
+def _posed_hand(assets, device):
+    """The synthetic left hand posed by `mano_forward` at a seeded pose."""
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.mano.layer import mano_forward
+    from renderih_tpu_torch.ops.rotation import rodrigues
+
+    rng = np.random.default_rng(0)
+    pose = torch.from_numpy(rng.normal(0, 0.4, (1, 45)).astype(np.float32))
+    root = torch.from_numpy(rng.normal(0, 0.8, (1, 3)).astype(np.float32))
+    v, _ = mano_forward(assets.left.mano, rodrigues(root), pose, torch.zeros(1, 10),
+                        center_idx=None, use_pca=False)
+    return v[0].to(device), assets.left.mano.faces.to(device)
+
+
+def _cube(device):
+    import torch
+
+    v = torch.tensor([[x, y, z] for z in (-.5, .5) for y in (-.5, .5) for x in (-.5, .5)])
+    f = torch.tensor([[0, 3, 1], [0, 2, 3], [4, 5, 7], [4, 7, 6], [0, 1, 5], [0, 5, 4],
+                      [3, 2, 6], [3, 6, 7], [1, 3, 7], [1, 7, 5], [0, 4, 6], [0, 6, 2]])
+    return v.to(device), f.to(device)
+
+
+def sdf_kernel_phase(assets) -> list:
+    """B3 against its plain version on the card (see the module docstring)."""
+    import torch
+
+    from renderih_tpu_torch.kernels import sdf
+
+    dev = torch.device(DEVICE)
+    atol, rtol = SDF_TOL
+    rows = []
+    for mesh, (verts, faces) in (("hand", _posed_hand(assets, dev)), ("cube", _cube(dev))):
+        n_faces = faces.shape[0]
+        for g in SDF_GRIDS:
+            phi, bmin, scale = sdf.sdf_grid(verts, faces, g)
+            torch.cuda.synchronize()
+            ref, ref_bmin, ref_scale = sdf.sdf_grid_reference(verts, faces, g)
+            name = f"sdf_grid {mesh} G={g}"
+            err = _check(name, phi, ref, atol, rtol)
+            flips = int(((phi > 0) != (ref > 0)).sum())
+            if flips or not torch.equal(bmin, ref_bmin) or not torch.equal(scale, ref_scale):
+                raise AssertionError(f"{name}: {flips} inside flags differ, or bbox/scale "
+                                     f"differ ({bmin.tolist()} {float(scale)} vs "
+                                     f"{ref_bmin.tolist()} {float(ref_scale)})")
+            n_vox = g ** 3
+            row = dict(mesh=mesh, grid=g, faces=n_faces, max_abs_err=err, atol=atol,
+                       rtol=rtol, inside=int((ref > 0).sum()), inside_flips=flips,
+                       ms=_time_ms(lambda: sdf.launch_sdf(verts, faces, bmin, scale, g)),
+                       wrapper_ms=_time_ms(lambda: sdf.sdf_grid(verts, faces, g)),
+                       plain_ms=_time_ms(lambda: sdf.sdf_grid_reference(verts, faces, g),
+                                         iters=5, warmup=1),
+                       library_ms=None,
+                       **_bound(4 * (3 * n_vox + 9 * n_faces + n_vox),
+                                SDF_FLOP_PER_PAIR * n_vox * n_faces, "float32"))
+            rows.append(row)
+            print(f"[B3] {name} F={n_faces}: max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g}) "
+                  f"inside {row['inside']}/{n_vox}, inside flags differing: {flips}, "
+                  f"bbox and scale equal  kernel_ms={row['ms']:.4f} (with the torch "
+                  f"bbox setup: {row['wrapper_ms']:.4f}) "
+                  f"plain_ms={row['plain_ms']:.4f} library_ms=none "
+                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+    return rows
+
+
+def _penetration(labels: dict, assets, grid: int):
+    """Per sample, the SDF penetration of each hand into the other in the
+    label frame (both hands shifted alike by the refinement's frame map)."""
+    import torch
+
+    from renderih_tpu_torch.ops.sdf import sdf_penetration_loss
+
+    dev = torch.device(DEVICE)
+    v_l = torch.from_numpy(labels["v3d_left"]).to(dev)
+    v_r = torch.from_numpy(labels["v3d_right"]).to(dev)
+    f_l, f_r = assets.left.mano.faces.to(dev), assets.right.mano.faces.to(dev)
+    return [float(sdf_penetration_loss(v_l[i:i + 1], v_r[i:i + 1], f_l, grid)
+                  + sdf_penetration_loss(v_r[i:i + 1], v_l[i:i + 1], f_r, grid))
+            for i in range(v_l.shape[0])]
+
+
+def synth_phase(assets, gpu_line: str, profile: bool = False) -> dict:
+    """The synthetic-data path on the card (see the module docstring)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.assets import manos_to
+    from renderih_tpu_torch.data.interhand import LABEL_KEYS, _label_shape
+    from renderih_tpu_torch.kernels import _build, conv3x3, fused_attention, sdf
+    from renderih_tpu_torch.tools import synth_gen
+
+    per_attempt = SYNTH_ITERS // 4
+    per_sample = 4 * (2 * per_attempt + 2)  # 2 fields per loss evaluation: 128
+    common = ["--n", str(SYNTH_N), "--batch", str(SYNTH_N), "--seed", "0", "--device", DEVICE]
+    os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        refined_dir, start_dir = os.path.join(tmp, "refined"), os.path.join(tmp, "start")
+        for counter in (conv3x3.launches, fused_attention.launches, sdf.launches):
+            counter.reset()
+        stats = synth_gen.main(["--out", refined_dir, *common, "--optimize",
+                                "--opt_iters", str(SYNTH_ITERS)])
+        launches = {"conv3x3": conv3x3.launches.value,
+                    "fused_mha": fused_attention.launches.value,
+                    "sdf_grid": sdf.launches.value}
+        want = {"conv3x3": 0, "fused_mha": 0, "sdf_grid": SYNTH_N * per_sample}
+        print(f"[synth] synth_gen --n {SYNTH_N} --batch {SYNTH_N} --optimize --opt_iters "
+              f"{SYNTH_ITERS}: launches {launches} (expected {want})", flush=True)
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches} != {want}")
+
+        labels = dict(np.load(os.path.join(refined_dir, "train_labels.npz")))
+        images = np.memmap(os.path.join(refined_dir, "train_images.u8"), dtype=np.uint8,
+                           mode="r")
+        if images.size != SYNTH_N * 256 * 256 * 3 or images.std() < 1:
+            raise AssertionError(f"images: {images.size} bytes, std {images.std():.2f}")
+        for key in LABEL_KEYS:
+            if labels[key].shape != (SYNTH_N,) + _label_shape(key) \
+                    or not np.isfinite(labels[key]).all():
+                raise AssertionError(f"{key}: shape {labels[key].shape} or non-finite")
+        # the same seed without refinement: the samples as they started
+        synth_gen.main(["--out", start_dir, *common])
+        start = dict(np.load(os.path.join(start_dir, "train_labels.npz")))
+    pen0 = np.asarray(_penetration(start, assets, SYNTH_GRID))
+    pen1 = np.asarray(_penetration(labels, assets, SYNTH_GRID))
+    hit = pen0 > 0
+    if not hit.any() or not pen1[hit].mean() < pen0[hit].mean():
+        raise AssertionError(f"penetration did not fall: {pen0[hit].mean() if hit.any() else 0:.4e}"
+                             f" -> {pen1[hit].mean() if hit.any() else 0:.4e} over "
+                             f"{int(hit.sum())} interpenetrating samples")
+    print(f"[synth] {int(hit.sum())}/{SYNTH_N} samples started interpenetrating: mean SDF "
+          f"penetration (G={SYNTH_GRID}) {pen0[hit].mean():.4e} -> {pen1[hit].mean():.4e}; "
+          f"{int((pen1[hit] > 0).sum())} of them still interpenetrate", flush=True)
+    print(f"[synth] {stats['refined_samples_per_s']:.3f} refined samples/s "
+          f"({stats['refine_seconds']:.2f} s refining {SYNTH_N}), "
+          f"{stats['images_per_s']:.3f} generated images/s end to end "
+          f"({stats['seconds']:.2f} s) on {gpu_line}", flush=True)
+    result = dict(launches=launches, per_sample=per_sample,
+                  refine_seconds=stats["refine_seconds"], seconds=stats["seconds"],
+                  refined_samples_per_s=stats["refined_samples_per_s"],
+                  images_per_s=stats["images_per_s"], pen_start=pen0.tolist(),
+                  pen_refined=pen1.tolist())
+    if profile:
+        device = torch.device(DEVICE)
+        refine = synth_gen._make_refine(manos_to(assets, device), SYNTH_ITERS, device)
+        with torch.no_grad():
+            raw = synth_gen._sample_raw(torch.Generator(device=device).manual_seed(1), 1)
+        result["profile"] = profile_phase(
+            f"one refined sample ({SYNTH_ITERS} iterations)",
+            lambda: refine({k: v.clone() for k, v in raw.items()}, 0))
+    return result
+
+
+def refine_parity_phase(assets) -> dict:
+    """Card against CPU: one anchor-mode refinement from one numpy start.
+
+    Gradients tightly, the trajectory loosely. At the start the objective
+    agrees within 1e-4 relative and its gradient within 1e-4 relative plus
+    1e-5 of its largest component (float32 sums in another order). The
+    objective is piecewise smooth: the SDF gradient jumps when a vertex
+    crosses a cell of the other hand's grid, the repulsion at its clamp and
+    the nearest neighbours when they switch, so differences of 1e-7 grow
+    along the run. After 4 attempts of 3 Adam steps the parameters must lie
+    within 2·lr·steps of each other (Adam moves a component by at most ~lr
+    a step), each weighted term within 5% of the final objective, and the
+    objectives within 5% of each other."""
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.optimize.anchors import make_synthetic_anchors
+    from renderih_tpu_torch.optimize.geo import (
+        GeoWeights,
+        HandVars,
+        hand_forward,
+        make_gaussian_pose_prior,
+        make_refine_loss,
+        optimize_two_hands,
+    )
+
+    rng = np.random.default_rng(5)
+    draw = {k: rng.normal(0, s, n).astype(np.float32) for k, s, n in (
+        ("root_l", 0.8, 3), ("pose_l", 0.4, 45), ("shape_l", 0.6, 10),
+        ("root_r", 0.8, 3), ("pose_r", 0.4, 45), ("shape_r", 0.6, 10), ("offset", 0.02, 3))}
+    prior_poses = (rng.normal(size=(256, 45)) * 0.4).astype(np.float32)
+    specs = tuple(make_synthetic_anchors(m.faces.numpy(), m.v_template.numpy())
+                  for m in (assets.left.mano, assets.right.mano))
+    rep_mult, con_mult, _ = REFINE_SCHEDULE[-1]
+    w = GeoWeights()
+    weight = dict(contact=w.contact * con_mult, repulsion=w.repulsion * rep_mult, sdf=w.sdf,
+                  edge=w.edge, pose_reg=w.pose_reg, shape_reg=w.shape_reg,
+                  angle=w.angle_limit, prior=w.prior)
+
+    def start(device):
+        hands = []
+        for side, mano in (("l", assets.left.mano), ("r", assets.right.mano)):
+            t = {k: torch.from_numpy(draw[f"{k}_{side}"]) for k in ("pose", "shape", "root")}
+            hv = HandVars(t["pose"], t["shape"], torch.zeros(3), t["root"])
+            with torch.no_grad():
+                j9 = hand_forward(mano, hv)[1][9]
+            trans = -j9 + (torch.from_numpy(draw["offset"]) if side == "r" else 0.0)
+            hands.append(HandVars(*(x.to(device) for x in hv._replace(trans=trans))))
+        return hands
+
+    res = {}
+    for device in (DEVICE, "cpu"):
+        left, right = start(device)
+        prior = make_gaussian_pose_prior(torch.from_numpy(prior_poses).to(device))
+        loss_fn, match_fn = make_refine_loss(assets, left, right, sdf_grid_size=SYNTH_GRID,
+                                             pose_prior_fn=prior, anchors=specs)
+        leaves = [t.clone().requires_grad_() for hv in (left, right) for t in hv]
+        params = (HandVars(*leaves[:4]), HandVars(*leaves[4:]))
+        total0, _ = loss_fn(params, match_fn(params), con_mult, rep_mult)
+        total0.backward()
+        l2, r2, terms = optimize_two_hands(
+            assets, left, right, lr=REFINE_LR, sdf_grid_size=SYNTH_GRID, pose_prior_fn=prior,
+            anchors=specs, schedule=REFINE_SCHEDULE)
+        terms = {k: float(v) * weight[k] for k, v in terms.items()}
+        res[device] = dict(
+            total0=total0.item(), total=sum(terms.values()), terms=terms,
+            grad=np.concatenate([t.grad.cpu().numpy().ravel() for t in leaves]),
+            params=np.concatenate([t.cpu().numpy().ravel() for hv in (l2, r2) for t in hv]))
+    card, cpu = res[DEVICE], res["cpu"]
+    steps = sum(n for _, _, n in REFINE_SCHEDULE)
+    grad_err = np.abs(card["grad"] - cpu["grad"])
+    grad_tol = 1e-4 * np.abs(cpu["grad"]) + 1e-5 * np.abs(cpu["grad"]).max()
+    start_rel = abs(card["total0"] - cpu["total0"]) / abs(cpu["total0"])
+    param_err = float(np.abs(card["params"] - cpu["params"]).max())
+    term_err = max(abs(card["terms"][k] - v) for k, v in cpu["terms"].items()) / cpu["total"]
+    total_rel = abs(card["total"] - cpu["total"]) / cpu["total"]
+    print(f"[refine-parity] anchor mode, G={SYNTH_GRID}, f32, TF32 off, card vs CPU: at the "
+          f"start objective {card['total0']:.6g}/{cpu['total0']:.6g} (rel {start_rel:.2e}, "
+          f"limit 1e-4), gradient max|Δ| {grad_err.max():.3e} (max|g| "
+          f"{np.abs(cpu['grad']).max():.4g}; {int((grad_err > grad_tol).sum())} components "
+          f"outside 1e-4·|g| + 1e-5·max|g|); after {len(REFINE_SCHEDULE)}x3 steps params "
+          f"max|Δ| {param_err:.3e} (limit {2 * REFINE_LR * steps:g}), objective "
+          f"{card['total']:.6g}/{cpu['total']:.6g} (rel {total_rel:.2e}, limit 0.05), weighted "
+          f"terms max|Δ| {term_err:.2e} of the objective (limit 0.05): "
+          + ", ".join(f"{k}={card['terms'][k]:.5g}/{cpu['terms'][k]:.5g}"
+                      for k in sorted(cpu["terms"])), flush=True)
+    if not (start_rel <= 1e-4 and (grad_err <= grad_tol).all()
+            and param_err <= 2 * REFINE_LR * steps and total_rel <= 0.05 and term_err <= 0.05):
+        raise AssertionError("card and CPU refinements disagree")
+    return dict(start_rel=start_rel, grad_max_abs_err=float(grad_err.max()),
+                params_max_abs_err=param_err, total_rel=total_rel, term_err=term_err)
+
+
 def _summary(rows: list, launches: int) -> dict:
-    """One kernel's totals over the launches of one forward at batch 256."""
+    """One kernel's totals over the launches of one unit of its path (a
+    flagship forward at batch 256; a refined sample)."""
     def total(key):
         return sum(r[key] * r["launches_per_forward"] for r in rows)
 
@@ -349,7 +631,8 @@ def _summary(rows: list, launches: int) -> dict:
                 ms=total("ms"), plain_ms=total("plain_ms"),
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=total("library_ms"))
+                library_ms=None if any(r["library_ms"] is None for r in rows)
+                else total("library_ms"))
 
 
 def run(json_path: str | None, profile: bool) -> int:
@@ -374,9 +657,9 @@ def run(json_path: str | None, profile: bool) -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build(["conv3x3", "fused_attention"], verbose=True)
+    logs = _build.build(["conv3x3", "fused_attention", "sdf"], verbose=True)
     for name, log in logs.items():
-        print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} {name}.cu:\n{log.strip()}")
+        print(f"[build] nvcc {' '.join(_build.nvcc_flags(name))} {name}.cu:\n{log.strip()}")
     print(f"[build] {sorted(logs)} built in {time.perf_counter() - t0:.1f} s into "
           f"{_build.BUILD_DIR}", flush=True)
     gpu_line = _gpu_line()
@@ -388,6 +671,17 @@ def run(json_path: str | None, profile: bool) -> int:
     rows = kernel_phase(cfg, verts_nums)
     path = main_path_phase(cfg, assets, gpu_line, profile)
     errs = parity_phase(cfg, assets)
+    rows["sdf_grid"] = sdf_kernel_phase(assets)
+    synth = synth_phase(assets, gpu_line, profile)
+    refine = refine_parity_phase(assets)
+    on_path = [r for r in rows["sdf_grid"] if r["mesh"] == "hand" and r["grid"] == SYNTH_GRID]
+    for r in on_path:
+        r["launches_per_forward"] = synth["per_sample"]
+    per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
+    b3_ms = synth["per_sample"] * on_path[0]["ms"]
+    print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
+          f"{on_path[0]['ms']:.4f} ms = {b3_ms:.2f} ms of {per_sample_ms:.2f} ms "
+          f"({100 * b3_ms / per_sample_ms:.1f}%)", flush=True)
 
     src = "renderih_tpu_torch"
     kernels = [
@@ -398,12 +692,16 @@ def run(json_path: str | None, profile: bool) -> int:
         dict(name="fused_mha", route="cuda", source=f"{src}/csrc/fused_attention.cu",
              replaces="renderih_tpu/kernels/fused_attention.py:43",
              **_summary(rows["fused_mha"], path["launches"]["fused_mha"])),
+        dict(name="sdf_grid", route="cuda", source=f"{src}/csrc/sdf.cu",
+             replaces="renderih_tpu/kernels/sdf_pallas.py:124",
+             **dict(_summary(on_path, synth["launches"]["sdf_grid"]),
+                    max_abs_err=max(r["max_abs_err"] for r in rows["sdf_grid"]))),
     ]
     if json_path:
         with open(json_path, "w") as f:
             json.dump({"card": gpu_line, "torch": torch.__version__, "rows": rows,
-                       "main_path": path, "parity": errs, "kernels": kernels}, f,
-                      indent=1)
+                       "main_path": path, "parity": errs, "synth_path": synth,
+                       "refine_parity": refine, "kernels": kernels}, f, indent=1)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -417,7 +715,8 @@ def main() -> int:
     parser.add_argument("--json", help="also write every measurement to this file")
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one flagship "
-                             "predict at the largest bucket (torch.profiler)")
+                             "predict at the largest bucket and over one refined "
+                             "sample (torch.profiler)")
     args = parser.parse_args()
     try:
         return run(args.json, args.profile)

@@ -5,7 +5,8 @@ levels, the positional-encoding colors, the 778 x V_out upsampling
 initializer and the 21-joint regressor, built from converted real assets
 (`load_assets`) or deterministically synthetic (`make_synthetic_assets`).
 Every tensor lives on the CPU; the model copies what it needs to its
-device.
+device, and `manos_to` moves the two MANO models for the MANO-only paths
+(pose refinement, synthetic data).
 
 The synthetic mesh coarsens to 61/122/244 nodes (real MANO: 63/126/252);
 nothing here assumes either.
@@ -13,7 +14,7 @@ nothing here assumes either.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ from renderih_tpu_torch.mano.params import (
     joint_regressor_21,
     load_mano_npz,
     make_synthetic_mano,
+    to_device,
 )
 
 
@@ -54,6 +56,13 @@ class HandAssets:
 class Assets:
     left: HandAssets
     right: HandAssets
+
+
+def manos_to(assets: Assets, device: torch.device | str) -> Assets:
+    """The same bundle with both MANO models on `device` (once, before a
+    path that runs MANO many times there)."""
+    return Assets(left=replace(assets.left, mano=to_device(assets.left.mano, device)),
+                  right=replace(assets.right, mano=to_device(assets.right.mano, device)))
 
 
 def _dense_color_from_template(mano: ManoModel) -> np.ndarray:

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `build/renderih_tpu_torch/lib<name>-<hash>.so` at the root of the checkout
-(`build/` is git-ignored). The hash covers the source and the flags, so an
-edited source never loads a stale library. A library is built at first use
+(`build/` is git-ignored). The hash covers the source and its flags (the
+shared `NVCC_FLAGS` and its own `SOURCE_FLAGS`), so an edited source or
+flag never loads a stale library. A library is built at first use
 (`load`), or ahead of time for several sources at once (`build`: one nvcc
 per source, all started together). Nothing is compiled when a module is
 imported.
@@ -23,6 +24,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "renderih_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# Flags of one source on top of NVCC_FLAGS. `sdf.cu` must not contract
+# multiply-adds: its inside/outside parity has to agree bit for bit with
+# the plain version's separately rounded products and sums.
+SOURCE_FLAGS = {"sdf": ("-fmad=false",)}
+
+
+def nvcc_flags(name: str) -> tuple:
+    """Every nvcc flag of `csrc/<name>.cu` (shared and per-source)."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -39,7 +49,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -58,7 +68,7 @@ def build(names, verbose: bool = False) -> dict:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [nvcc, *nvcc_flags(name), *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

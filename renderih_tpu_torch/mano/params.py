@@ -18,6 +18,11 @@ import torch
 # Kinematic tree: 16 joints (root + 3 per finger x 5).
 MANO_PARENTS: tuple = (-1, 0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 11, 0, 13, 14)
 
+# Joints grouped by depth in the tree; each level's parents are the whole
+# previous level, so the SE(3) chain composes as three batched (B, 5, 4, 4)
+# products (`mano/layer.py:_compose_kinematics`).
+KINEMATIC_LEVELS: tuple = ((1, 4, 7, 10, 13), (2, 5, 8, 11, 14), (3, 6, 9, 12, 15))
+
 # Fingertip vertices appended after the 16 skeleton joints
 # (reference `models/manolayer.py:296`).
 TIP_VERTEX_IDS: tuple = (745, 317, 444, 556, 673)
@@ -39,7 +44,8 @@ NUM_SKEL_JOINTS = 16
 
 
 class ManoModel(NamedTuple):
-    """MANO parameters as CPU tensors (float32; `faces` int64)."""
+    """MANO parameters as tensors (float32; `faces` int64), on the CPU as
+    loaded; `to_device` moves them once to where the path runs."""
 
     v_template: torch.Tensor        # (778, 3)
     shapedirs: torch.Tensor         # (778, 3, 10)
@@ -51,6 +57,14 @@ class ManoModel(NamedTuple):
     hands_mean: torch.Tensor        # (45,)
     faces: torch.Tensor             # (F, 3)
     is_right: bool
+
+
+def to_device(model: ManoModel, device: torch.device | str) -> ManoModel:
+    """The same model with every tensor on `device` (no copy where a
+    tensor is already there)."""
+    return model._replace(**{
+        name: value.to(device) for name, value in model._asdict().items()
+        if isinstance(value, torch.Tensor)})
 
 
 def _f32(a) -> torch.Tensor:

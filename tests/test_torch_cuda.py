@@ -16,8 +16,12 @@ import torch
 
 from renderih_tpu_torch.assets import make_synthetic_assets
 from renderih_tpu_torch.config import load_config
-from renderih_tpu_torch.kernels import conv3x3, fused_attention
+from renderih_tpu_torch.kernels import conv3x3, fused_attention, sdf
+from renderih_tpu_torch.mano.layer import mano_forward
+from renderih_tpu_torch.mano.params import make_synthetic_mano
+from renderih_tpu_torch.ops.rotation import rodrigues
 from renderih_tpu_torch.serve import InferenceEngine
+from renderih_tpu_torch.tools import synth_gen
 
 pytestmark = pytest.mark.gpu
 
@@ -122,3 +126,64 @@ def test_engine_on_card_matches_cpu_and_launches_the_kernels(cuda):
         assert got[key].shape == ref.shape
         err = np.abs(got[key] - ref).max() / max(np.abs(ref).max(), 1e-6)
         assert err <= 1e-4, f"{key}: rel max|Δ| {err:.3e}"
+
+
+def _mesh(name, device):
+    if name == "cube":
+        v = torch.tensor([[x, y, z] for z in (-.5, .5) for y in (-.5, .5) for x in (-.5, .5)])
+        f = torch.tensor([[0, 3, 1], [0, 2, 3], [4, 5, 7], [4, 7, 6], [0, 1, 5], [0, 5, 4],
+                          [3, 2, 6], [3, 6, 7], [1, 3, 7], [1, 7, 5], [0, 4, 6], [0, 6, 2]])
+        return v.to(device), f.to(device)
+    model = make_synthetic_mano(0, is_right=False)
+    rng = np.random.default_rng(0)
+    pose = torch.from_numpy(rng.normal(0, 0.4, (1, 45)).astype(np.float32))
+    root = torch.from_numpy(rng.normal(0, 0.8, (1, 3)).astype(np.float32))
+    v, _ = mano_forward(model, rodrigues(root), pose, torch.zeros(1, 10), center_idx=None,
+                        use_pca=False)
+    return v[0].to(device), model.faces.to(device)
+
+
+@pytest.mark.parametrize("mesh", ["cube", "hand"])
+@pytest.mark.parametrize("g", [16, 24, 32])
+def test_sdf_kernel_matches_plain(cuda, mesh, g):
+    """Same float32 arithmetic in the same order (sdf.cu built with
+    -fmad=false): phi within 1e-5 + 1e-5·|ref|, inside flags identical."""
+    verts, faces = _mesh(mesh, cuda)
+    n = sdf.launches.value
+    phi, bmin, scale = sdf.sdf_grid(verts, faces, g)
+    torch.cuda.synchronize()
+    assert sdf.launches.value == n + 1
+    ref, ref_bmin, ref_scale = sdf.sdf_grid_reference(verts, faces, g)
+    assert phi.shape == (g, g, g) and phi.dtype == torch.float32
+    assert torch.equal(phi > 0, ref > 0)
+    torch.testing.assert_close(phi, ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(bmin, ref_bmin) and torch.equal(scale, ref_scale)
+    i32 = sdf.sdf_grid(verts, faces.int(), g)[0]
+    torch.testing.assert_close(i32, phi, atol=0, rtol=0)
+
+
+def test_sdf_kernel_refuses_what_it_does_not_take(cuda):
+    verts, faces = _mesh("cube", cuda)
+    with pytest.raises(ValueError, match="faces on"):
+        sdf.sdf_grid(verts, faces.cpu(), 8)
+    with pytest.raises(TypeError):
+        sdf.sdf_grid(verts.double(), faces, 8)
+    with pytest.raises(TypeError):
+        sdf.sdf_grid(verts, faces.float(), 8)
+    with pytest.raises(ValueError, match="shapes"):
+        sdf.sdf_grid(verts[:, :2], faces, 8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sdf.sdf_grid(verts.clone().requires_grad_(), faces, 8)
+
+
+def test_synth_gen_on_the_card_launches_b3_per_refinement_step(cuda, tmp_path):
+    """60 iterations = 4 attempts of 15 Adam steps; each loss evaluation
+    builds 2 fields, and each attempt ends with one more evaluation:
+    4 * (2 * 15 + 2) = 128 launches per refined sample."""
+    n = sdf.launches.value
+    result = synth_gen.main(["--out", str(tmp_path), "--n", "2", "--batch", "2",
+                             "--optimize", "--opt_iters", "60"])
+    assert sdf.launches.value - n == 2 * 128
+    assert result["device"].startswith("cuda")
+    labels = np.load(tmp_path / "train_labels.npz")
+    assert all(np.isfinite(labels[k]).all() for k in labels.files)

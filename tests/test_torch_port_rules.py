@@ -11,6 +11,7 @@ import torch
 
 from renderih_tpu_torch.config import Config
 from renderih_tpu_torch.serve import InferenceEngine, resolve_device
+from renderih_tpu_torch.tools import synth_gen
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "renderih_tpu"}
@@ -40,7 +41,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, renderih_tpu_torch.serve, renderih_tpu_torch.utils.weights; "
+    code = ("import sys, renderih_tpu_torch.serve, renderih_tpu_torch.utils.weights, "
+            "renderih_tpu_torch.tools.synth_gen, renderih_tpu_torch.optimize, "
+            "renderih_tpu_torch.render.renderer, renderih_tpu_torch.render.backgrounds; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -57,3 +60,12 @@ def test_engine_without_device_runs_on_the_card_or_raises():
 
 def test_cpu_must_be_asked_for():
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_synth_gen_without_device_runs_on_the_card_or_raises(tmp_path):
+    if torch.cuda.is_available():
+        assert synth_gen.build_parser().parse_args(["--out", "x"]).device == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            synth_gen.main(["--out", str(tmp_path / "out"), "--n", "1"])
+        assert not (tmp_path / "out").exists()

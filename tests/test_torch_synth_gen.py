@@ -1,0 +1,64 @@
+"""The port's synthetic-data generator on the CPU (`--device cpu`: the
+plain versions), with the contact/SDF refinement, read back by the JAX
+package's packed-dataset reader."""
+
+import numpy as np
+import pytest
+import torch
+
+from renderih_tpu.data.interhand import LABEL_KEYS as JAX_LABEL_KEYS
+from renderih_tpu.data.interhand import PackedInterHand, _label_shape
+from renderih_tpu.ops.projection import orthographic_project as jax_project
+from renderih_tpu_torch.data.interhand import IMG_SIZE, LABEL_KEYS
+from renderih_tpu_torch.kernels import sdf
+from renderih_tpu_torch.tools import synth_gen
+
+
+@pytest.fixture(scope="module")
+def generated(tmp_path_factory):
+    out = tmp_path_factory.mktemp("synth")
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        n_launches = sdf.launches.value
+        result = synth_gen.main(["--out", str(out), "--n", "2", "--batch", "2", "--optimize",
+                                 "--opt_iters", "4", "--seed", "3", "--device", "cpu"])
+        assert sdf.launches.value == n_launches  # the CPU takes the plain version
+    finally:
+        torch.set_num_threads(prev)
+    return out, result
+
+
+def test_output_loads_with_the_jax_reader(generated):
+    out, result = generated
+    assert LABEL_KEYS == JAX_LABEL_KEYS and IMG_SIZE == 256
+    data = PackedInterHand.load(str(out), "train", use_native=False)
+    assert len(data) == 2 and result["n"] == 2 and result["device"] == "cpu"
+    batch = data.batch(np.arange(2))
+    assert batch["img_u8"].shape == (2, 256, 256, 3) and batch["img_u8"].dtype == np.uint8
+    assert batch["img_u8"].std() > 5  # a rendered scene, not a blank
+    for key in LABEL_KEYS:
+        assert batch[key].shape == (2,) + _label_shape(key), key
+        assert np.isfinite(batch[key]).all(), key
+    np.testing.assert_array_equal(batch["pose_left"][:, :3], 0.0)
+    assert result["refined_samples_per_s"] > 0 and result["images_per_s"] > 0
+
+
+def test_2d_labels_are_the_sampled_camera_projection(generated):
+    out, result = generated
+    labels = dict(np.load(out / "train_labels.npz"))
+    cam = result["camera"]
+    for side in ("left", "right"):
+        for kind in ("v", "j"):
+            want = np.asarray(jax_project(cam["scale"], cam[f"trans_{side}"],
+                                          labels[f"{kind}3d_{side}"], 256))
+            np.testing.assert_allclose(labels[f"{kind}2d_{side}"], want, atol=1e-3)
+    # the left hand is centred on its joint 9 (middle MCP)
+    np.testing.assert_allclose(labels["j3d_left"][:, 9], 0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("flag", [["--prior", "gan"], ["--backgrounds", "bg_dir"],
+                                  ["--renderer", "pathtrace"]])
+def test_unported_options_raise(tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        synth_gen.main(["--out", str(tmp_path), "--device", "cpu", *flag])
