@@ -9,11 +9,13 @@ line:
 
 1. Build: compiles the port's CUDA kernels from `renderih_tpu_torch/csrc/`
    with nvcc for sm_90a (one nvcc per source, in parallel) and prints
-   `-Xptxas -v` (registers, shared memory, spills), then the card's name
-   and power limit.
+   `-Xptxas -v` (registers, shared memory, spills); B2's `conv3x3_wgmma`
+   and B3's `sdf_kernel` must spill nothing. Then the card's name and
+   power limit.
 2. Kernels against their plain versions on the card, at every shape the
    flagship path gives them at batch 256: B2 (3x3 conv) in bf16 and f32,
-   B1 (fused attention) in f32. Each line has max|Δ| and its tolerance,
+   B1 (fused attention) in f32. B2 must take its `wgmma` route in bf16
+   and its `simt` route in f32. Each line has max|Δ| and its tolerance,
    the kernel's time (CUDA events after warm-up), the plain version's,
    one library call's (cuDNN `F.conv2d`, `F.scaled_dot_product_attention`;
    a yardstick the port never calls) and the bound: the larger of the
@@ -24,13 +26,14 @@ line:
    on synthetic assets with seeded random weights, served through
    `InferenceEngine` + `BatchingServer` (64 single-image requests) and one
    `predict` of 256 images. The launch counters must rise by exactly 13
-   (B2) and 24 (B1) per forward. Then, in f32 with TF32 off, the card's
+   (B2) and 24 (B1) per forward, and every B2 launch must take the
+   `wgmma` route. Then, in f32 with TF32 off, the card's
    outputs are held against the same engine run on the CPU (the plain
    versions) on the same weights and images.
 4. B3 (SDF voxeliser) against its plain version on the card, on the
    synthetic left hand posed at a seeded pose and on the unit cube, at
-   G = 16, 24, 32: max|Δ| of phi within 1e-5 + 1e-5·|ref|, inside flags
-   identical voxel for voxel, bbox and scale equal, kernel and plain
+   G = 16, 24, 32: phi equal bit for bit (`torch.equal`; the kernel's
+   lane reductions are exact), bbox and scale equal, kernel and plain
    times (the kernel's launch alone, and with the wrapper's torch bbox
    setup) and the bound (80 FLOP per (voxel, face) at 67 TFLOP/s, bytes
    4·(3G³ + 9F + G³) at 3.35 TB/s: the Pallas kernel's cost estimate). No
@@ -72,7 +75,6 @@ N_REQUESTS = 64
 CONV_TOL = {"bfloat16": (1e-2, 1.6e-2), "float32": (1e-4, 1e-4)}  # atol, rtol
 MHA_TOL = (1e-4, 1e-4)
 PATH_RTOL = 1e-4  # card vs CPU, relative to each output's max |value|
-SDF_TOL = (1e-5, 1e-5)  # atol, rtol: both sides do the same f32 arithmetic
 SDF_GRIDS = (16, 24, 32)
 SDF_FLOP_PER_PAIR = 80  # the Pallas kernel's cost estimate (sdf_pallas.py:164)
 SYNTH_N, SYNTH_ITERS, SYNTH_GRID = 32, 60, 16
@@ -129,6 +131,37 @@ def _check(name: str, got, want, atol: float, rtol: float) -> float:
     return max_err
 
 
+NO_SPILLS = {"conv3x3": "conv3x3_wgmma", "sdf": "sdf_kernel"}  # source: kernel
+
+
+def check_spills(logs: dict) -> None:
+    """Fail if ptxas reports spills in a kernel of NO_SPILLS, or no report
+    for one whose source was built."""
+    spills, seen, fn = [], set(), ""
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                fn = line.rsplit(" ", 1)[-1]
+            elif "spill stores" in line and NO_SPILLS.get(name, "?") in fn:
+                seen.add(name)
+                # "N bytes stack frame, N bytes spill stores, N bytes spill loads"
+                if any(int(tok) for tok in line.replace(",", " ").split()[3:]
+                       if tok.isdigit()):
+                    spills.append(f"{name}: {fn}: {line.strip()}")
+    if spills:
+        raise AssertionError("ptxas spills:\n" + "\n".join(spills))
+    missing = [NO_SPILLS[n] for n in NO_SPILLS if n in logs and n not in seen]
+    if missing:
+        raise AssertionError(f"no ptxas report for {missing}")
+    print(f"[build] no spills in {[NO_SPILLS[n] for n in sorted(seen)]}", flush=True)
+
+
+def _routes() -> dict:
+    from renderih_tpu_torch.kernels import conv3x3
+
+    return {name: c.value for name, c in conv3x3.routes.items()}
+
+
 def conv_shapes(cfg) -> list:
     """(H=W, C, launches per forward) of every stride-1 3x3 conv class of
     the ResNet trunk at this config's image size."""
@@ -174,8 +207,14 @@ def kernel_phase(cfg, verts_nums) -> dict:
             x = torch.randn(BATCH, side, side, c, device=dev, generator=g).to(dtype)
             w = (torch.randn(3, 3, c, c, device=dev, generator=g)
                  / (9 * c) ** 0.5).to(dtype)
+            before = _routes()
             y = conv3x3.conv3x3_same(x, w)
             torch.cuda.synchronize()
+            route = "wgmma" if dtype == torch.bfloat16 else "simt"
+            want_routes = dict(before, **{route: before[route] + 1})
+            if _routes() != want_routes:
+                raise AssertionError(f"conv3x3 {dname} {side}²x{c}: routes {_routes()}, "
+                                     f"expected {want_routes}")
             err = _check(f"conv3x3 {dname} {side}²x{c}", y,
                          conv3x3.conv3x3_reference(x, w), atol, rtol)
             x_lib = x.permute(0, 3, 1, 2)  # NCHW view, channels_last
@@ -184,6 +223,7 @@ def kernel_phase(cfg, verts_nums) -> dict:
             flops = 2 * BATCH * side * side * c * c * 9
             row = dict(
                 dtype=dname, shape=[BATCH, side, side, c, c], launches_per_forward=per_fwd,
+                route=route,
                 max_abs_err=err, atol=atol, rtol=rtol,
                 ms=_time_ms(lambda: conv3x3.conv3x3_same(x, w)),
                 plain_ms=_time_ms(lambda: conv3x3.conv3x3_reference(x, w)),
@@ -194,7 +234,7 @@ def kernel_phase(cfg, verts_nums) -> dict:
                   f"max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g})  "
                   f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-                  f"({row['bound_by']})  launches/forward={per_fwd}", flush=True)
+                  f"({row['bound_by']})  launches/forward={per_fwd} route={route}", flush=True)
             del x, w, y, x_lib, w_lib
 
     atol, rtol = MHA_TOL
@@ -241,7 +281,8 @@ def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     hook = engine.model.register_forward_pre_hook(
         lambda mod, args: forwards.__setitem__(0, forwards[0] + 1))
 
-    for counter in (conv3x3.launches, fused_attention.launches, sdf.launches):
+    for counter in (conv3x3.launches, fused_attention.launches, sdf.launches,
+                    *conv3x3.routes.values()):
         counter.reset()
     server = BatchingServer(engine)
     try:
@@ -259,6 +300,7 @@ def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     launches = {"conv3x3": conv3x3.launches.value,
                 "fused_mha": fused_attention.launches.value,
                 "sdf_grid": sdf.launches.value}
+    routes = _routes()
     hook.remove()
 
     n_fwd = forwards[0]
@@ -267,11 +309,14 @@ def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
                    cfg, assets.left.verts_nums)),
                "sdf_grid": 0}
     want = {k: n * n_fwd for k, n in per_fwd.items()}
+    want_routes = {"simt": 0, "wgmma": want["conv3x3"]}
     print(f"[path] {N_REQUESTS} requests in {n_served_batches} served batches + "
           f"predict({BATCH}): {n_fwd} forwards, launches {launches} "
-          f"(expected {want})", flush=True)
+          f"(expected {want}), B2 routes {routes} (expected {want_routes})", flush=True)
     if n_fwd == 0 or launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    if routes != want_routes:
+        raise AssertionError(f"B2 routes {routes} != {want_routes}")
     for i, res in enumerate(served):
         if res["verts3d_left"].shape != (778, 3):
             raise AssertionError(f"request {i}: shape {res['verts3d_left'].shape}")
@@ -289,7 +334,8 @@ def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
           f"{BATCH}: {', '.join(f'{r:.1f}' for r in rates)}; host upload and copy "
           f"back included) on {gpu_line}; served-vs-batched rel max|Δ| {d:.2e}",
           flush=True)
-    result = {"launches": launches, "forwards": n_fwd, "images_per_s": rate,
+    result = {"launches": launches, "conv3x3_routes": routes, "forwards": n_fwd,
+              "images_per_s": rate,
               "images_per_s_runs": rates}
     if profile:
         batch = images[:engine.buckets[-1]]
@@ -402,7 +448,6 @@ def sdf_kernel_phase(assets) -> list:
     from renderih_tpu_torch.kernels import sdf
 
     dev = torch.device(DEVICE)
-    atol, rtol = SDF_TOL
     rows = []
     for mesh, (verts, faces) in (("hand", _posed_hand(assets, dev)), ("cube", _cube(dev))):
         n_faces = faces.shape[0]
@@ -411,15 +456,17 @@ def sdf_kernel_phase(assets) -> list:
             torch.cuda.synchronize()
             ref, ref_bmin, ref_scale = sdf.sdf_grid_reference(verts, faces, g)
             name = f"sdf_grid {mesh} G={g}"
-            err = _check(name, phi, ref, atol, rtol)
+            err = float((phi - ref).abs().max())
             flips = int(((phi > 0) != (ref > 0)).sum())
-            if flips or not torch.equal(bmin, ref_bmin) or not torch.equal(scale, ref_scale):
-                raise AssertionError(f"{name}: {flips} inside flags differ, or bbox/scale "
-                                     f"differ ({bmin.tolist()} {float(scale)} vs "
+            if not torch.equal(phi, ref) or not torch.equal(bmin, ref_bmin) \
+                    or not torch.equal(scale, ref_scale):
+                raise AssertionError(f"{name}: phi not bit-equal (max|Δ| {err:.3e}, {flips} "
+                                     f"inside flags differ), or bbox/scale differ "
+                                     f"({bmin.tolist()} {float(scale)} vs "
                                      f"{ref_bmin.tolist()} {float(ref_scale)})")
             n_vox = g ** 3
-            row = dict(mesh=mesh, grid=g, faces=n_faces, max_abs_err=err, atol=atol,
-                       rtol=rtol, inside=int((ref > 0).sum()), inside_flips=flips,
+            row = dict(mesh=mesh, grid=g, faces=n_faces, max_abs_err=err,
+                       inside=int((ref > 0).sum()), inside_flips=flips,
                        ms=_time_ms(lambda: sdf.launch_sdf(verts, faces, bmin, scale, g)),
                        wrapper_ms=_time_ms(lambda: sdf.sdf_grid(verts, faces, g)),
                        plain_ms=_time_ms(lambda: sdf.sdf_grid_reference(verts, faces, g),
@@ -428,9 +475,9 @@ def sdf_kernel_phase(assets) -> list:
                        **_bound(4 * (3 * n_vox + 9 * n_faces + n_vox),
                                 SDF_FLOP_PER_PAIR * n_vox * n_faces, "float32"))
             rows.append(row)
-            print(f"[B3] {name} F={n_faces}: max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g}) "
-                  f"inside {row['inside']}/{n_vox}, inside flags differing: {flips}, "
-                  f"bbox and scale equal  kernel_ms={row['ms']:.4f} (with the torch "
+            print(f"[B3] {name} F={n_faces}: phi bit-equal to the plain version, "
+                  f"inside {row['inside']}/{n_vox}, bbox and scale equal  "
+                  f"kernel_ms={row['ms']:.4f} (with the torch "
                   f"bbox setup: {row['wrapper_ms']:.4f}) "
                   f"plain_ms={row['plain_ms']:.4f} library_ms=none "
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
@@ -472,7 +519,8 @@ def synth_phase(assets, gpu_line: str, profile: bool = False) -> dict:
     os.makedirs(_build.BUILD_DIR.parent, exist_ok=True)  # build/, git-ignored
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
         refined_dir, start_dir = os.path.join(tmp, "refined"), os.path.join(tmp, "start")
-        for counter in (conv3x3.launches, fused_attention.launches, sdf.launches):
+        for counter in (conv3x3.launches, fused_attention.launches, sdf.launches,
+                        *conv3x3.routes.values()):
             counter.reset()
         stats = synth_gen.main(["--out", refined_dir, *common, "--optimize",
                                 "--opt_iters", str(SYNTH_ITERS)])
@@ -662,6 +710,7 @@ def run(json_path: str | None, profile: bool) -> int:
         print(f"[build] nvcc {' '.join(_build.nvcc_flags(name))} {name}.cu:\n{log.strip()}")
     print(f"[build] {sorted(logs)} built in {time.perf_counter() - t0:.1f} s into "
           f"{_build.BUILD_DIR}", flush=True)
+    check_spills(logs)
     gpu_line = _gpu_line()
     print(f"[card] {gpu_line}", flush=True)
 

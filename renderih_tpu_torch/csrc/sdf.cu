@@ -13,24 +13,32 @@
 // clamped edge minimisers; the crossing test is Moller-Trumbore.
 //
 // What bounds it on an H100: operations. Per (voxel, face) pair it does
-// ~80 FLOP (the Pallas cost estimate; ~110 as written here) against 4 bytes
-// per voxel out and 36 per face in, so at G=32, F=1552 the call is ~4.1
-// GFLOP, 0.061 ms at 67 TFLOP/s f32, against 0.0002 ms of bytes. The
-// design keeps every pair out of device memory: one thread per voxel
-// (upstream's CUDA kernel did the same) holds its centre, a running min
-// and a crossing count in registers; the block streams the faces through
-// shared memory in tiles of kTile, each staged once per block with the
-// per-face quantities precomputed (v0, e0, e1, a00, a01, a11, the clamped
-// det and edge denominators, the ray's pvec and inv_det), so the inner
-// loop reads broadcast shared memory only. The face count is ragged
-// (1552 synthetic, 1538 real): the last tile is short, nothing is padded.
-// The voxel centre comes from bbox_min, scale and G, not from an array.
+// ~80 FLOP (the Pallas cost estimate; ~110 as written here, with three to
+// five IEEE divisions) against 4 bytes per voxel out and 36 per face in,
+// so at G=32, F=1552 the call is ~4.1 GFLOP, 0.061 ms at 67 TFLOP/s f32,
+// against 0.0002 ms of bytes. No pair touches device memory.
 //
-// Occupancy: one thread per voxel gives G^3 threads, 4096 at G=16 (the
-// synthetic-data refinement): 32 blocks of 128 threads on 132 SMs, one
-// block per SM, each thread looping over all F faces. Splitting the face
-// loop across blocks, or both fields of a step in one launch, is later
-// work.
+// Design: a warp per voxel, kVoxels = 8 voxels in a 256-thread block. The
+// block streams the faces through shared memory in tiles of kTile, each
+// face staged once per block with its per-face terms precomputed (v0, e0,
+// e1, a00, a01, a11, the clamped det and edge denominators, the ray's pvec
+// and inv_det), so the pair loop reads shared memory only. The 32 lanes
+// of a warp split its voxel's face loop: lane l takes faces l, l + 32,
+// ..., keeping a running fminf of the squared distance and an integer
+// crossing count; a shuffle reduction ends the voxel, and sqrtf and the
+// parity are taken once. Both reductions are exact and independent of
+// order (fminf returns one of its operands; the count is an integer), so
+// the field is bit for bit the plain version's with no atomics and no
+// scratch. At G=16 (the refinement's size) that is 512 blocks, ~31 warps
+// on each of the 132 SMs and ~49 faces a lane at F=1552, where one thread
+// per voxel gave 32 blocks on 132 SMs. Staging costs ~1/8 of the pair work
+// (each block stages every face for 8 voxels); a per-call table of face
+// terms would need scratch memory and a second pass, and splitting faces
+// across blocks atomics and a finalising pass: neither is needed to fill
+// the card. The face count is ragged (1552 synthetic, 1538 real, 12 for a
+// cube, fewer than the lanes): the last tile is short and idle lanes keep
+// the identities (inf, 0). The voxel centre comes from bbox_min, scale and
+// G, not from an array.
 //
 // Exactness: the crossing parity is discontinuous, so the kernel does the
 // plain version's float32 arithmetic (renderih_tpu_torch/kernels/sdf.py)
@@ -47,8 +55,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // voxels per block
-constexpr int kTile = 128;     // faces per shared-memory tile (one per thread)
+constexpr int kThreads = 256;           // 8 warps
+constexpr int kVoxels = kThreads / 32;  // voxels per block: a warp each
+constexpr int kTile = kThreads;         // faces per shared-memory tile (one per thread)
 constexpr float kEps = 1e-12f;
 constexpr float kRayX = 0.801783726f, kRayY = 0.534522484f, kRayZ = 0.267261242f;
 
@@ -114,8 +123,9 @@ sdf_kernel(const float* __restrict__ verts, const I* __restrict__ faces,
            const float* __restrict__ bbox_min, const float* __restrict__ scale_ptr,
            float* __restrict__ phi, int num_faces, int G) {
   __shared__ FaceTile tile;
+  const int lane = threadIdx.x & 31;
   const int64_t n_vox = (int64_t)G * G * G;
-  const int64_t vox = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t vox = (int64_t)blockIdx.x * kVoxels + (threadIdx.x >> 5);
   const bool active = vox < n_vox;
   const int gx = (int)(vox % G), gy = (int)((vox / G) % G), gz = (int)(vox / ((int64_t)G * G));
   const float scale = scale_ptr[0];
@@ -132,7 +142,7 @@ sdf_kernel(const float* __restrict__ verts, const I* __restrict__ faces,
     if (threadIdx.x < n) stage_face(tile, threadIdx.x, verts, faces, start + threadIdx.x);
     __syncthreads();
     if (!active) continue;
-    for (int j = 0; j < n; ++j) {
+    for (int j = lane; j < n; j += 32) {
       const float v0x = tile.v0[0][j], v0y = tile.v0[1][j], v0z = tile.v0[2][j];
       const float e0x = tile.e0[0][j], e0y = tile.e0[1][j], e0z = tile.e0[2][j];
       const float e1x = tile.e1[0][j], e1y = tile.e1[1][j], e1z = tile.e1[2][j];
@@ -184,7 +194,13 @@ sdf_kernel(const float* __restrict__ verts, const I* __restrict__ faces,
                     u + v <= 1.f && tr > 1e-9f);
     }
   }
-  if (active) phi[vox] = (crossings & 1) ? sqrtf(best) : 0.f;
+  // the warp's partial results: exact and order-free, so no atomics
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    best = fminf(best, __shfl_xor_sync(0xffffffffu, best, off));
+    crossings += __shfl_xor_sync(0xffffffffu, crossings, off);
+  }
+  if (active && lane == 0) phi[vox] = (crossings & 1) ? sqrtf(best) : 0.f;
 }
 
 template <typename I>
@@ -192,7 +208,7 @@ int launch(const void* verts, const void* faces, const void* bbox_min,
            const void* scale, void* phi, int num_faces, int G, void* stream) {
   if (G < 1 || num_faces < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_vox = (int64_t)G * G * G;
-  const int64_t blocks = (n_vox + kThreads - 1) / kThreads;
+  const int64_t blocks = (n_vox + kVoxels - 1) / kVoxels;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   sdf_kernel<I><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(verts), static_cast<const I*>(faces),

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `build/renderih_tpu_torch/lib<name>-<hash>.so` at the root of the checkout
-(`build/` is git-ignored). The hash covers the source and its flags (the
-shared `NVCC_FLAGS` and its own `SOURCE_FLAGS`), so an edited source or
-flag never loads a stale library. A library is built at first use
+(`build/` is git-ignored). The hash covers the source, every header
+`csrc/*.cuh` it may include, and its flags (the shared `NVCC_FLAGS` and
+its own `SOURCE_FLAGS`), so an edited source, header or flag never loads a
+stale library. A library is built at first use
 (`load`), or ahead of time for several sources at once (`build`: one nvcc
 per source, all started together). Nothing is compiled when a module is
 imported.
@@ -48,9 +49,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names, verbose: bool = False) -> dict:

@@ -8,6 +8,10 @@ both bfloat16, and returns NHWC in x's dtype. It replaces
 
 Dispatch: a CPU tensor takes the plain version (`conv3x3_reference`); a
 CUDA tensor launches the kernel or raises. There is no other route.
+On the card the C launcher picks one of two kernels and reports which:
+`wgmma` (Hopper tensor cores; bf16 with Cin % 16 == 0, Cout % 8 == 0 and
+16-byte aligned tensors) or `simt` (CUDA cores; f32 and every other
+input). `routes` counts the launches of each beside `launches`.
 The kernel has no backward yet, so on the card it refuses inputs that
 require grad while grad mode is on.
 """
@@ -23,12 +27,14 @@ from renderih_tpu_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    f"conv3x3_same_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+    f"conv3x3_same_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.POINTER(_I))
     for t in ("f32", "bf16")
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+ROUTES = ("simt", "wgmma")  # the launcher's route codes 0 and 1
 
 launches = _build.LaunchCounter()
+routes = {name: _build.LaunchCounter() for name in ROUTES}
 
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -63,11 +69,13 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return y
     lib = _build.load("conv3x3", _SIGNATURES)
     fn = getattr(lib, f"conv3x3_same_{_SUFFIX[x.dtype]}")
+    route = _I(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin,
-                 cout, stream)
+                 cout, stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"conv3x3_same: kernel launch failed (CUDA error {err})")
     launches.add()
+    routes[ROUTES[route.value]].add()
     return y

@@ -42,19 +42,34 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
 
+def _conv_route(dtype, cin, cout):
+    """The kernel the launcher must pick for a 16-byte aligned input."""
+    return "wgmma" if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0 else "simt"
+
+
+def _routes():
+    return {name: c.value for name, c in conv3x3.routes.items()}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 7, 7, 24, 40), (3, 13, 21, 64, 72),
-                                   (2, 8, 8, 512, 512), (2, 64, 64, 64, 64)])
+@pytest.mark.parametrize("shape", [
+    (2, 7, 7, 24, 40), (3, 13, 21, 64, 72), (2, 8, 8, 512, 512), (2, 64, 64, 64, 64),
+    # Cin no multiple of a 32/64 chunk; Cout no multiple of the N tile
+    (2, 9, 11, 16, 64), (2, 10, 12, 48, 32), (2, 11, 9, 32, 136),
+    # small maps: images folded into M, a ragged last group of images
+    (1, 5, 7, 32, 64), (3, 5, 7, 32, 64), (1, 8, 8, 64, 128), (3, 8, 8, 64, 128)])
 def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
     b, h, w, cin, cout = shape
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(b, h, w, cin, device=cuda, generator=g).to(dtype)
     k = (torch.randn(3, 3, cin, cout, device=cuda, generator=g)
          / (9 * cin) ** 0.5).to(dtype)
-    n = conv3x3.launches.value
+    n, routes = conv3x3.launches.value, _routes()
     got = conv3x3.conv3x3_same(x, k)
     torch.cuda.synchronize()
     assert conv3x3.launches.value == n + 1
+    routes[_conv_route(dtype, cin, cout)] += 1
+    assert _routes() == routes
     assert got.shape == (b, h, w, cout) and got.dtype == dtype
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), conv3x3.conv3x3_reference(x, k).float(),
@@ -70,7 +85,9 @@ def test_conv3x3_bf16_off_the_tensor_core_layout(cuda, cout):
     x = torch.randn(n + 1, device=cuda, generator=g).bfloat16()[1:].view(2, 9, 11, 32)
     k = (torch.randn(3, 3, 32, cout, device=cuda, generator=g) / 17.0).bfloat16()
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    simt = conv3x3.routes["simt"].value
     got = conv3x3.conv3x3_same(x, k)
+    assert conv3x3.routes["simt"].value == simt + 1
     torch.testing.assert_close(got.float(), conv3x3.conv3x3_reference(x, k).float(),
                                atol=TOL[torch.bfloat16][0], rtol=TOL[torch.bfloat16][1])
 
@@ -144,10 +161,12 @@ def _mesh(name, device):
 
 
 @pytest.mark.parametrize("mesh", ["cube", "hand"])
-@pytest.mark.parametrize("g", [16, 24, 32])
+@pytest.mark.parametrize("g", [1, 7, 16, 17, 24, 32, 33])
 def test_sdf_kernel_matches_plain(cuda, mesh, g):
     """Same float32 arithmetic in the same order (sdf.cu built with
-    -fmad=false): phi within 1e-5 + 1e-5·|ref|, inside flags identical."""
+    -fmad=false) and exact, order-free reductions across the lanes: phi
+    bit for bit the plain version's. The cube has fewer faces (12) than a
+    warp has lanes; G = 1, 7, 17, 33 leave the last block ragged."""
     verts, faces = _mesh(mesh, cuda)
     n = sdf.launches.value
     phi, bmin, scale = sdf.sdf_grid(verts, faces, g)
@@ -155,11 +174,10 @@ def test_sdf_kernel_matches_plain(cuda, mesh, g):
     assert sdf.launches.value == n + 1
     ref, ref_bmin, ref_scale = sdf.sdf_grid_reference(verts, faces, g)
     assert phi.shape == (g, g, g) and phi.dtype == torch.float32
-    assert torch.equal(phi > 0, ref > 0)
-    torch.testing.assert_close(phi, ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(phi, ref)
     assert torch.equal(bmin, ref_bmin) and torch.equal(scale, ref_scale)
     i32 = sdf.sdf_grid(verts, faces.int(), g)[0]
-    torch.testing.assert_close(i32, phi, atol=0, rtol=0)
+    assert torch.equal(i32, phi)
 
 
 def test_sdf_kernel_refuses_what_it_does_not_take(cuda):

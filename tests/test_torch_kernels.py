@@ -11,7 +11,7 @@ import torch
 
 from renderih_tpu.kernels.conv_pallas import _pallas_conv3x3, _xla_conv3x3
 from renderih_tpu.kernels.fused_attention import fused_mha as jax_fused_mha
-from renderih_tpu_torch.kernels import conv3x3, fused_attention
+from renderih_tpu_torch.kernels import _build, conv3x3, fused_attention
 
 
 @pytest.fixture(autouse=True)
@@ -56,12 +56,14 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing():
     w = torch.randn(3, 3, 8, 4)
     q = torch.randn(1, 5, 2, 16)
     n_conv, n_mha = conv3x3.launches.value, fused_attention.launches.value
+    routes = {name: c.value for name, c in conv3x3.routes.items()}
     torch.testing.assert_close(conv3x3.conv3x3_same(x, w),
                                conv3x3.conv3x3_reference(x, w), rtol=0, atol=0)
     torch.testing.assert_close(fused_attention.fused_mha(q, q, q),
                                fused_attention.mha_reference(q, q, q),
                                rtol=0, atol=0)
     assert conv3x3.launches.value == n_conv
+    assert {name: c.value for name, c in conv3x3.routes.items()} == routes
     assert fused_attention.launches.value == n_mha
 
 
@@ -85,3 +87,22 @@ def test_mha_training_dropout_is_plain_and_random():
     torch.manual_seed(0)
     dropped = fused_attention.mha_reference(q, q, q, 0.5, training=True)
     assert not torch.allclose(dropped, ref)
+
+
+def test_library_hash_covers_headers(tmp_path, monkeypatch):
+    """A library's name changes with every `csrc/*.cuh`, so an edited
+    header never loads a stale build."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.glob("*.cu"):
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    bare = _build.library_path("conv3x3")
+    header = csrc / "hopper.cuh"
+    header.write_text("#pragma once\n")
+    with_header = _build.library_path("conv3x3")
+    header.write_text("#pragma once\n// edited\n")
+    edited = _build.library_path("conv3x3")
+    assert len({bare, with_header, edited}) == 3
+    assert edited == _build.library_path("conv3x3")  # deterministic
+    assert edited.parent == _build.BUILD_DIR and edited.name.startswith("libconv3x3-")
