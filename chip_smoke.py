@@ -9,19 +9,27 @@ line:
 
 1. Build: compiles the port's CUDA kernels from `renderih_tpu_torch/csrc/`
    with nvcc for sm_90a (one nvcc per source, in parallel) and prints
-   `-Xptxas -v` (registers, shared memory, spills); B2's `conv3x3_wgmma`
-   and B3's `sdf_kernel` must spill nothing. Then the card's name and
-   power limit.
+   `-Xptxas -v` (registers, shared memory, spills); B2's `conv3x3_wgmma`,
+   B1's `mha_mma_kernel` and B3's `sdf_kernel` must spill nothing; each
+   B1 instance's registers and dynamic shared memory. Then the card's
+   name and power limit.
 2. Kernels against their plain versions on the card, at every shape the
    flagship path gives them at batch 256: B2 (3x3 conv) in bf16 and f32,
-   B1 (fused attention) in f32. B2 must take its `wgmma` route in bf16
-   and its `simt` route in f32. Each line has max|Δ| and its tolerance,
-   the kernel's time (CUDA events after warm-up), the plain version's,
-   one library call's (cuDNN `F.conv2d`, `F.scaled_dot_product_attention`;
-   a yardstick the port never calls) and the bound: the larger of the
-   bytes moved (inputs read once, output written once) over 3.35 TB/s
-   and the FLOPs over the peak for the input type (989 TFLOP/s bf16,
-   67 TFLOP/s f32; H100 SXM data sheet).
+   B1 (fused attention) in f32 and bf16. B2 must take its `wgmma` route in
+   bf16 and its `simt` route in f32. Each line has max|Δ| and its
+   tolerance, the kernel's time (CUDA events after warm-up; for B1 and
+   SDPA beside it the device time of 20 calls replayed from a CUDA graph,
+   since B1's wrapper costs the host more than its kernel costs the card
+   at the short shapes, and also B1's eager time, host included), the
+   plain version's, one library call's (cuDNN `F.conv2d`,
+   `F.scaled_dot_product_attention`; a yardstick the port never calls) and
+   the bound: the largest of the bytes moved (inputs read once, output
+   written once) over 3.35 TB/s, the FLOPs over the peak of the unit that
+   does them (H100 SXM data sheet: 989 TFLOP/s bf16 and 495 TF32 on tensor
+   cores, 67 f32 on CUDA cores; B1 runs on tensor cores, B2's f32 and B3
+   on CUDA cores) and, for B1, the exponentials over the MUFU rate (16 a
+   clock per SM at 1.98 GHz). B1's f32 lines also print the bound of PR
+   1-3's yardstick, its FLOPs over the CUDA-core f32 peak.
 3. The flagship path: `Config()` (ResNet-50, bf16 encoder, f32 decoder)
    on synthetic assets with seeded random weights, served through
    `InferenceEngine` + `BatchingServer` (64 single-image requests) and one
@@ -69,7 +77,8 @@ import time
 import traceback
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
+MUFU_EXP_PER_S = 132 * 16 * 1.98e9  # ex2: 16 a clock on each of 132 SMs at 1.98 GHz
 BATCH = 256
 N_REQUESTS = 64
 CONV_TOL = {"bfloat16": (1e-2, 1.6e-2), "float32": (1e-4, 1e-4)}  # atol, rtol
@@ -106,13 +115,37 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(n_bytes: int, flops: int, dtype_name: str) -> dict:
-    """The least time for this work: bytes over the HBM rate or FLOPs over
-    the peak for the type, whichever is larger."""
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of `fn`: `iters` calls captured in one CUDA
+    graph and replayed, so that the host's cost of a call (Python, ctypes,
+    allocation), which exceeds a short kernel's time, is left out."""
+    import torch
+
+    side = torch.cuda.Stream()  # warm-up off the capturing stream, as capture asks
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = _time_ms(graph.replay, iters=5, warmup=1) / iters
+    del graph
+    return ms
+
+
+def _bound(n_bytes: int, flops: int, dtype_name: str, exps: int = 0) -> dict:
+    """The least time for this work: bytes over the HBM rate, FLOPs over
+    the peak for the type (`PEAK_FLOPS`) or exponentials over the MUFU
+    rate, whichever is largest."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return dict(bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    t_exps = exps / MUFU_EXP_PER_S * 1e3
+    bound = max(t_bytes, t_ops, t_exps)
+    return dict(bytes_ms=t_bytes, ops_ms=t_ops, exps_ms=t_exps, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= bound else "operations")
 
 
 def _check(name: str, got, want, atol: float, rtol: float) -> float:
@@ -131,7 +164,8 @@ def _check(name: str, got, want, atol: float, rtol: float) -> float:
     return max_err
 
 
-NO_SPILLS = {"conv3x3": "conv3x3_wgmma", "sdf": "sdf_kernel"}  # source: kernel
+NO_SPILLS = {"conv3x3": "conv3x3_wgmma", "fused_attention": "mha_mma_kernel",
+             "sdf": "sdf_kernel"}  # source: kernel
 
 
 def check_spills(logs: dict) -> None:
@@ -154,6 +188,30 @@ def check_spills(logs: dict) -> None:
     if missing:
         raise AssertionError(f"no ptxas report for {missing}")
     print(f"[build] no spills in {[NO_SPILLS[n] for n in sorted(seen)]}", flush=True)
+
+
+def print_mha_resources(log: str) -> None:
+    """B1's registers (ptxas) and dynamic shared memory (the library's own
+    `fused_mha_smem_bytes`) for each (dtype, D) instance."""
+    import ctypes
+    import re
+
+    from renderih_tpu_torch.kernels import _build
+
+    lib = ctypes.CDLL(str(_build.library_path("fused_attention")))
+    lib.fused_mha_smem_bytes.argtypes = (ctypes.c_int, ctypes.c_int)
+    lib.fused_mha_smem_bytes.restype = ctypes.c_int
+    inst = None
+    for line in log.splitlines():
+        m = re.search(r"mha_mma_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+        if "Function properties for" in line and m:
+            inst = ("bfloat16" if m.group(1) != "f" else "float32", int(m.group(2)))
+        elif inst and "registers" in line:
+            dtype, d = inst
+            smem = lib.fused_mha_smem_bytes(int(dtype == "bfloat16"), d)
+            print(f"[build] mha_mma_kernel<{dtype}, D={d}>: "
+                  f"{line.split(':', 1)[1].strip()}; {smem} B dynamic shared memory", flush=True)
+            inst = None
 
 
 def _routes() -> dict:
@@ -237,30 +295,55 @@ def kernel_phase(cfg, verts_nums) -> dict:
                   f"({row['bound_by']})  launches/forward={per_fwd} route={route}", flush=True)
             del x, w, y, x_lib, w_lib
 
-    atol, rtol = MHA_TOL
-    for n, d, per_fwd in mha_shapes(cfg, verts_nums):
-        q, k, v = (torch.randn(BATCH, n, cfg.model.num_attn_heads, d, device=dev,
-                               generator=g) for _ in range(3))
-        out = fused_attention.fused_mha(q, k, v)
-        torch.cuda.synchronize()
-        err = _check(f"fused_mha N={n} D={d}", out,
-                     fused_attention.mha_reference(q, k, v), atol, rtol)
-        ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 4
-        flops = 4 * BATCH * cfg.model.num_attn_heads * n * n * d
-        row = dict(
-            dtype="float32", shape=[BATCH, n, cfg.model.num_attn_heads, d],
-            launches_per_forward=per_fwd, max_abs_err=err, atol=atol, rtol=rtol,
-            ms=_time_ms(lambda: fused_attention.fused_mha(q, k, v)),
-            plain_ms=_time_ms(lambda: fused_attention.mha_reference(q, k, v)),
-            library_ms=_time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl)),
-            **_bound(n_bytes, flops, "float32"))
-        rows["fused_mha"].append(row)
-        print(f"[B1] fused_mha f32 q=k=v({BATCH},{n},{cfg.model.num_attn_heads},{d}): "
-              f"max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g})  "
-              f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-              f"({row['bound_by']})  launches/forward={per_fwd}", flush=True)
+    heads = cfg.model.num_attn_heads
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        f32 = dtype == torch.float32
+        atol, rtol = MHA_TOL if f32 else CONV_TOL[dname]
+        for n, d, per_fwd in mha_shapes(cfg, verts_nums):
+            q, k, v = (torch.randn(BATCH, n, heads, d, device=dev, generator=g).to(dtype)
+                       for _ in range(3))
+            out = fused_attention.fused_mha(q, k, v)
+            torch.cuda.synchronize()
+            # against the float32 plain version on the same (rounded) inputs
+            err = _check(f"fused_mha {dname} N={n} D={d}", out,
+                         fused_attention.mha_reference(q.float(), k.float(), v.float()),
+                         atol, rtol)
+            ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
+            flops = 4 * BATCH * heads * n * n * d
+            # tensor cores: TF32 (3xTF32 runs three passes of it) or bf16
+            bound = _bound(n_bytes, flops, "tfloat32" if f32 else dname,
+                           exps=BATCH * heads * n * n)
+            row = dict(
+                dtype=dname, shape=[BATCH, n, heads, d],
+                launches_per_forward=per_fwd, max_abs_err=err, atol=atol, rtol=rtol,
+                ms=_graph_ms(lambda: fused_attention.fused_mha(q, k, v)),
+                eager_ms=_time_ms(lambda: fused_attention.fused_mha(q, k, v)),
+                plain_ms=_time_ms(lambda: fused_attention.mha_reference(q, k, v)),
+                library_ms=_graph_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl)),
+                **bound)
+            old = ""
+            if f32:  # PR 1-3's yardstick: FLOPs over the CUDA-core f32 peak
+                row["cuda_core_bound_ms"] = _bound(n_bytes, flops, "float32")["bound_ms"]
+                old = f" cuda_core_bound_ms={row['cuda_core_bound_ms']:.4f}"
+            rows["fused_mha"].append(row)
+            print(f"[B1] fused_mha {dname} q,k,v({BATCH},{n},{heads},{d}): "
+                  f"max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g})  "
+                  f"kernel_ms={row['ms']:.4f} (eager {row['eager_ms']:.4f}) "
+                  f"plain_ms={row['plain_ms']:.4f} "
+                  f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                  f"({row['bound_by']}: bytes {row['bytes_ms']:.4f}, ops "
+                  f"{row['ops_ms']:.4f}, exps {row['exps_ms']:.4f}){old}  "
+                  f"launches/forward={per_fwd}", flush=True)
+            del q, k, v, out, ql, kl, vl
+        fwd = [r for r in rows["fused_mha"] if r["dtype"] == dname]
+        total = {key: sum(r[key] * r["launches_per_forward"] for r in fwd)
+                 for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+                             "cuda_core_bound_ms") if key in fwd[0]}
+        print(f"[B1] fused_mha {dname} per flagship forward ({sum(r['launches_per_forward'] for r in fwd)} "
+              f"launches): " + ", ".join(f"{key} {val:.4f}" for key, val in total.items()),
+              flush=True)
     return rows
 
 
@@ -674,11 +757,12 @@ def _summary(rows: list, launches: int) -> dict:
     def total(key):
         return sum(r[key] * r["launches_per_forward"] for r in rows)
 
-    t_bytes, t_ops = total("bytes_ms"), total("ops_ms")
+    t_bytes, t_ops, t_exps = total("bytes_ms"), total("ops_ms"), total("exps_ms")
+    bound = max(t_bytes, t_ops, t_exps)
     return dict(launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=total("ms"), plain_ms=total("plain_ms"),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms=bound,
+                bound_by="bytes" if t_bytes >= bound else "operations",
                 library_ms=None if any(r["library_ms"] is None for r in rows)
                 else total("library_ms"))
 
@@ -711,6 +795,8 @@ def run(json_path: str | None, profile: bool) -> int:
     print(f"[build] {sorted(logs)} built in {time.perf_counter() - t0:.1f} s into "
           f"{_build.BUILD_DIR}", flush=True)
     check_spills(logs)
+    if "fused_attention" in logs:  # built in this run
+        print_mha_resources(logs["fused_attention"])
     gpu_line = _gpu_line()
     print(f"[card] {gpu_line}", flush=True)
 
@@ -740,7 +826,8 @@ def run(json_path: str | None, profile: bool) -> int:
                         path["launches"]["conv3x3"])),
         dict(name="fused_mha", route="cuda", source=f"{src}/csrc/fused_attention.cu",
              replaces="renderih_tpu/kernels/fused_attention.py:43",
-             **_summary(rows["fused_mha"], path["launches"]["fused_mha"])),
+             **_summary([r for r in rows["fused_mha"] if r["dtype"] == "float32"],
+                        path["launches"]["fused_mha"])),
         dict(name="sdf_grid", route="cuda", source=f"{src}/csrc/sdf.cu",
              replaces="renderih_tpu/kernels/sdf_pallas.py:124",
              **dict(_summary(on_path, synth["launches"]["sdf_grid"]),

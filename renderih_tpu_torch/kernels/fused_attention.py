@@ -4,8 +4,9 @@ version.
 `fused_mha(q, k, v)` takes q (B, N, H, D), k/v (B, M, H, D) and returns
 softmax(q k^T / sqrt(D)) v as (B, N, H*D) in q's dtype, the contract of
 `renderih_tpu/kernels/fused_attention.py:fused_mha`, whose `_mha_kernel`
-it replaces. The kernel (`csrc/fused_attention.cu`) takes D in {16, 32,
-64} in float32 or bfloat16; it says what bounds it and how.
+it replaces. The kernel (`csrc/fused_attention.cu`, Hopper tensor cores:
+3xTF32 in float32, bf16 in one pass) takes D in {16, 32, 64} in float32
+or bfloat16; it says what bounds it and how.
 
 Dispatch: a CPU tensor takes the plain version (`mha_reference`); a CUDA
 tensor launches the kernel or raises. The kernel has no dropout and no
@@ -75,6 +76,9 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     out = torch.empty((b, n, h * d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    # the kernel copies 16-byte pieces: a view that starts off that grid
+    # is copied to a fresh (aligned) allocation first
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     lib = _build.load("fused_attention", _SIGNATURES)
     fn = getattr(lib, f"fused_mha_{_SUFFIX[q.dtype]}")
     with torch.cuda.device(q.device):

@@ -93,19 +93,50 @@ def test_conv3x3_bf16_off_the_tensor_core_layout(cuda, cout):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,m,d", [(61, 61, 64), (63, 127, 32), (308, 308, 16),
-                                   (1, 5, 16), (64, 64, 64)])
-def test_fused_mha_kernel_matches_plain(cuda, n, m, d, dtype):
+@pytest.mark.parametrize("b,n,m,d,q_scale", [
+    (3, 61, 61, 64, 1), (3, 63, 127, 32, 1), (3, 308, 308, 16, 1), (3, 1, 5, 16, 1),
+    (3, 64, 64, 64, 1),
+    # real MANO's streams (63/126/252 nodes + grid)
+    (3, 127, 127, 64, 1), (3, 190, 190, 32, 1), (3, 316, 316, 16, 1), (3, 252, 252, 16, 1),
+    # N != M, ragged on both sides; one query row and one key
+    (3, 17, 300, 64, 1), (3, 1, 1, 32, 1),
+    # M far beyond the kernel's ring of 64-key chunks
+    (2, 8, 1000, 16, 1), (2, 8, 1000, 64, 1),
+    # batch 1
+    (1, 61, 61, 64, 1), (1, 122, 122, 32, 1),
+    # q x 8: logits reach +-50, the softmax is nearly one-hot, so the output
+    # is the V row of each row's top key (every V row differs: a wrong key
+    # order between P and V shows), and the running max and the 3xTF32
+    # split of large logits are tested where they matter most
+    (3, 125, 125, 64, 8), (3, 244, 244, 16, 8)])
+def test_fused_mha_kernel_matches_plain(cuda, b, n, m, d, q_scale, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
-    q = torch.randn(3, n, 4, d, device=cuda, generator=g).to(dtype)
-    k = torch.randn(3, m, 4, d, device=cuda, generator=g).to(dtype)
-    v = torch.randn(3, m, 4, d, device=cuda, generator=g).to(dtype)
+    q = (q_scale * torch.randn(b, n, 4, d, device=cuda, generator=g)).to(dtype)
+    k = torch.randn(b, m, 4, d, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, m, 4, d, device=cuda, generator=g).to(dtype)
+    count = fused_attention.launches.value
     got = fused_attention.fused_mha(q, k, v)
     torch.cuda.synchronize()
-    assert got.shape == (3, n, 4 * d) and got.dtype == dtype
+    assert fused_attention.launches.value == count + 1
+    assert got.shape == (b, n, 4 * d) and got.dtype == dtype
     want = fused_attention.mha_reference(q.float(), k.float(), v.float())
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+def test_fused_mha_off_the_16_byte_grid(cuda):
+    """Contiguous views that start off the kernel's 16-byte copy grid give
+    the same answer as aligned ones."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (2, 61, 4, 32)
+    n = np.prod(shape)
+    q, k, v = (torch.randn(n + 1, device=cuda, generator=g)[1:].view(shape) for _ in range(3))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    got = fused_attention.fused_mha(q, k, v)
+    torch.testing.assert_close(got, fused_attention.fused_mha(q.clone(), k.clone(), v.clone()),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(got, fused_attention.mha_reference(q, k, v),
+                               atol=TOL[torch.float32][0], rtol=TOL[torch.float32][1])
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

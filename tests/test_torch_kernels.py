@@ -4,6 +4,8 @@ dispatch rule (CPU tensors take the plain version, other devices raise,
 only a kernel launch counts). The CUDA kernels themselves are tested on
 the card in `test_torch_cuda.py`."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,10 +39,13 @@ def test_conv3x3_plain_matches_pallas_and_xla(shape):
     np.testing.assert_allclose(got, xla, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("n,m", [(61, 61), (63, 127)])
-def test_mha_plain_matches_pallas(n, m):
+def test_mha_plain_matches_pallas(n, m, d):
+    """The plain version the card's kernel is held to, against the Pallas
+    kernel (interpret mode) at every head dim the kernel takes."""
     rng = np.random.default_rng(1)
-    b, h, d = 2, 4, 16
+    b, h = 2, 4
     q = rng.normal(size=(b, n, h, d)).astype(np.float32)
     k = rng.normal(size=(b, m, h, d)).astype(np.float32)
     v = rng.normal(size=(b, m, h, d)).astype(np.float32)
@@ -49,6 +54,102 @@ def test_mha_plain_matches_pallas(n, m):
                                     jnp.asarray(v), interpret=True))
     assert got.shape == (b, n, h * d)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+# The f32 route's arithmetic (csrc/fused_attention.cu), modelled on the CPU:
+# why both products are split three ways.
+
+MHA_TOL = (1e-4, 1e-4)  # atol, rtol: chip_smoke.MHA_TOL, kernel against plain version
+# (N = M, D) of every attention core of the flagship decoder on the synthetic
+# assets, where chip_smoke.py holds the kernel to MHA_TOL
+FLAGSHIP_MHA = [(64, 64), (125, 64), (61, 64), (64, 32), (186, 32), (122, 32),
+                (64, 16), (308, 16), (244, 16)]
+
+
+def _tf32(x, nearest=True):
+    """float32 rounded to TF32 (10 mantissa bits) by bit operations on the
+    int32 view: to nearest with ties away from zero, as the kernel rounds
+    hi, or truncated, as the tensor core reads an operand (the kernel's lo)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + (0x1000 if nearest else 0)) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, passes):
+    """einsum(eq, a, b) on TF32 operands with float32 sums: one pass (hi.hi)
+    or 3xTF32 (lo.hi + hi.lo + hi.hi, each operand split x = hi + lo with
+    hi = tf32(x) to nearest and lo = tf32(x - hi) truncated)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, a_hi, b_hi)
+    if passes == 3:
+        a_lo, b_lo = _tf32(a - a_hi, nearest=False), _tf32(b - b_hi, nearest=False)
+        out = torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo) + out
+    return out
+
+
+def _mha_tf32_model(q, k, v, passes, chunk=64):
+    """The kernel's f32 route: both products through `_tf32_product`, an
+    online softmax over 64-key chunks, p = 2^(s c - m c), c = log2(e)/sqrt(D)."""
+    b, n, h, d = q.shape
+    c = math.log2(math.e) / math.sqrt(d)
+    m_run = torch.full((b, h, n, 1), -math.inf)
+    l_run = torch.zeros((b, h, n, 1))
+    o = torch.zeros((b, h, n, d))
+    for j in range(0, k.shape[1], chunk):
+        s = _tf32_product("bnhd,bmhd->bhnm", q, k[:, j:j + chunk], passes)
+        m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+        corr = torch.exp2((m_run - m_new) * c)
+        p = torch.exp2(s * c - m_new * c)
+        l_run = l_run * corr + p.sum(-1, keepdim=True)
+        o = o * corr + _tf32_product("bhnm,bmhd->bhnd", p, v[:, j:j + chunk], passes)
+        m_run = m_new
+    return (o / l_run).permute(0, 2, 1, 3).reshape(b, n, h * d)
+
+
+def _qkv(n, d, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=(2, n, 4, d)).astype(np.float32))
+            for _ in range(3))
+
+
+@pytest.mark.parametrize("n,d", FLAGSHIP_MHA)
+def test_mha_3xtf32_model_is_within_the_f32_tolerance(n, d):
+    q, k, v = _qkv(n, d, seed=n * d)
+    got = _mha_tf32_model(q, k, v, passes=3)
+    torch.testing.assert_close(got, fused_attention.mha_reference(q, k, v),
+                               atol=MHA_TOL[0], rtol=MHA_TOL[1])
+
+
+def test_mha_one_pass_tf32_model_is_outside_the_f32_tolerance():
+    """One-pass TF32 misses the tolerance where 3xTF32 meets it with room
+    to spare: why the kernel splits both products."""
+    q, k, v = _qkv(61, 64, seed=61 * 64)
+    want = fused_attention.mha_reference(q, k, v)
+    limit = MHA_TOL[0] + MHA_TOL[1] * want.abs()
+    err1 = (_mha_tf32_model(q, k, v, passes=1) - want).abs()
+    err3 = (_mha_tf32_model(q, k, v, passes=3) - want).abs()
+    assert (err1 > limit).any()
+    assert float(err3.max()) < 1e-5 < float(err1.max())
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits_to_nearest():
+    x = torch.tensor([1 + 2**-10, 1 + 2**-11, 1 + 3 * 2**-12, -(1 + 3 * 2**-12), 1 + 2**-12],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + 2**-10, 1 + 2**-10, 1 + 2**-10, -(1 + 2**-10), 1.0])
+    assert torch.equal(_tf32(x), want)
+    assert torch.equal(_tf32(x, nearest=False), torch.tensor([1 + 2**-10, 1, 1, -1, 1]))
+    y = torch.randn(1000)
+    hi = _tf32(y)
+    assert torch.equal(_tf32(hi), hi) and ((y - hi).abs() <= hi.abs() * 2**-11).all()
+
+
+def test_flagship_attention_shapes_are_the_modelled_ones():
+    """FLAGSHIP_MHA is every (N, D) at which chip_smoke.py measures B1."""
+    import chip_smoke
+    from renderih_tpu_torch.assets import make_synthetic_assets
+    from renderih_tpu_torch.config import Config
+
+    shapes = chip_smoke.mha_shapes(Config(), make_synthetic_assets(0).left.verts_nums)
+    assert [(n, d) for n, d, _ in shapes] == FLAGSHIP_MHA
 
 
 def test_cpu_calls_take_the_plain_version_and_count_nothing():
