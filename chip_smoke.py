@@ -58,9 +58,48 @@ line:
    start on both: the objective and its gradient at the start tightly,
    the final parameters, objective and weighted terms loosely (the
    objective is piecewise smooth; `refine_parity_phase` states why).
-7. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
-   batch 256 in the flagship's dtypes, B3 per refined sample), and as the
-   last line `{"ok": true, "device": {...}}`.
+7. B2's backward at every training shape (batch 64, bf16 and f32): dx
+   through B2 (`wgmma` in bf16, `simt` in f32) against the plain autograd
+   and against cuDNN's `conv2d_input` (the library yardstick) within
+   `CONV_TOL`, dw (cuDNN `conv2d_weight`) against the plain one; the
+   forward, dx (with its weight flip), plain, cuDNN and dw device times
+   (CUDA-graph replay, as B1's: at batch 64 a B2 call costs the host about
+   what its kernel costs the card), the eager times and the bound as in
+   phase 2, and their sums over a training step (13 forward + 13 dx).
+8. The training path: `apps.train.main` on the card, flagship `Config()`
+   at batch 64, `--synthetic --synth_n 256 --steps 21` (4 steps an epoch,
+   a checkpoint at epoch 5, step 20). Exactly 26 B2 launches a step, all
+   on `wgmma`; no B1; every loss term finite at every step. Then that
+   checkpoint alone in a new directory and `--resume auto` to step 21:
+   its terms against the uninterrupted step 21 (the same state, batch and
+   random draws) within 1e-4, and its final checkpoint against the
+   uninterrupted one: the parameters within `RESUME_TOL` of the step's
+   own largest move, the Adam moments and the BatchNorm statistics within
+   `RESUME_TOL` of each tensor's largest value, the same step counters
+   (one step from one state parts only by the order in which cuDNN's dw
+   and the index backward add). A planted fault shows that the check can
+   fail: from the same checkpoint with its optimizer state dropped, the
+   parameters and the moments must land outside those limits. 10 AdamW steps on one fixed batch lower the
+   loss. Prints training images/s (the median of steps 4-21; each step
+   ends at the NaN guard's host sync) and ms a step; with `--profile`, one
+   step's device time by kernel.
+9. Card against CPU on that path: one SGD step of `Config()` in f32 (TF32
+   off, dropout 0, batch 4) from one seeded init with the encoder's
+   BatchNorm biases raised by 3 (no ReLU input after a BatchNorm within
+   rounding of 0; tests/test_torch_train.py says why): the loss terms
+   within 1e-4 relative, the BatchNorm statistics within 1e-5, every
+   parameter's gradient within 2e-2 of its tensor's largest and 95% of
+   the tensors within 3e-3 (`GRAD_TOL`). At this width some ReLU input
+   lies within rounding of its kink for any batch, and a branch taken one
+   way on the card and the other on the CPU moves many tensors by up to
+   ~1e-2: the CPU alone, at one thread against eight, parts by 8.5e-3 at
+   worst with 99.2% of the tensors within 3e-3. A planted fault, the 2-D
+   term's weight 10% off, moves the worst tensor by 0.10 and leaves 3.3%
+   of the tensors within 3e-3. The measured distribution is printed.
+10. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+   batch 256 in the flagship's dtypes, B2 per training step at batch 64,
+   B3 per refined sample), and as the last line
+   `{"ok": true, "device": {...}}`.
 
 All f32 comparisons run with TF32 off in cuDNN and cuBLAS
 (`torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -89,7 +128,15 @@ SDF_FLOP_PER_PAIR = 80  # the Pallas kernel's cost estimate (sdf_pallas.py:164)
 SYNTH_N, SYNTH_ITERS, SYNTH_GRID = 32, 60, 16
 REFINE_SCHEDULE = ((1.0, 1.0, 3), (0.1, 15.0, 3), (30.0, 0.1, 3), (1.0, 5.0, 3))
 REFINE_LR = 1e-2
-DEVICE = "cuda"  # the card; a CPU rehearsal of phases 4-6 may set "cpu"
+DEVICE = "cuda"  # the card; a CPU rehearsal of phases 4-6 and 8-9 may set "cpu"
+TRAIN_BATCH = 64  # the flagship's batch a card
+TRAIN_SYNTH_N = 256
+TRAIN_STEPS = 21
+RESUME_TOL = 1e-3  # resumed vs uninterrupted step (phase 8)
+GRAD_TOL = (2e-2, 3e-3, 0.95)  # card vs CPU: every tensor, the tier, its share (phase 9)
+FIXED_BATCH_STEPS = 10
+PARITY_BATCH = 4
+BN_BIAS_SHIFT = 3.0  # card-vs-CPU gradients: keeps ReLU inputs after BatchNorm off 0
 
 
 def _gpu_line() -> str:
@@ -751,6 +798,336 @@ def refine_parity_phase(assets) -> dict:
                 params_max_abs_err=param_err, total_rel=total_rel, term_err=term_err)
 
 
+def conv_backward_phase(cfg) -> list:
+    """B2's backward at every training shape, batch TRAIN_BATCH, bf16 and
+    f32 (see the module docstring, phase 7)."""
+    import torch
+    import torch.nn.functional as F
+
+    from renderih_tpu_torch.kernels import conv3x3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        atol, rtol = CONV_TOL[dname]
+        route = "wgmma" if dtype == torch.bfloat16 else "simt"
+        for side, c, per_fwd in conv_shapes(cfg):
+            shape = (TRAIN_BATCH, side, side, c)
+            x = torch.randn(*shape, device=dev, generator=g).to(dtype)
+            w = (torch.randn(3, 3, c, c, device=dev, generator=g) / (9 * c) ** 0.5).to(dtype)
+            gy = torch.randn(*shape, device=dev, generator=g).to(dtype)
+            xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+            before = _routes()
+            conv3x3.conv3x3_same(xk, wk).backward(gy)
+            torch.cuda.synchronize()
+            want_routes = dict(before, **{route: before[route] + 2})  # forward, dx
+            if _routes() != want_routes:
+                raise AssertionError(f"conv3x3 backward {dname} {side}²x{c}: routes "
+                                     f"{_routes()}, expected {want_routes}")
+            xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+            conv3x3.conv3x3_reference(xp, wp).backward(gy)
+            name = f"conv3x3 backward {dname} {side}²x{c}"
+            w_t = w.flip(0, 1).transpose(2, 3).contiguous()
+            nchw = lambda t: t.permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            dx_lib = F.grad.conv2d_input(nchw(x).shape, w_oihw, nchw(gy), padding=1)
+            err_dx = _check(f"{name} dx vs plain", xk.grad, xp.grad, atol, rtol)
+            err_lib = _check(f"{name} dx vs cuDNN", xk.grad, dx_lib.permute(0, 2, 3, 1), atol,
+                             rtol)
+            # dw sums B·H·W products: relative to its largest element
+            ref = wp.grad.float()
+            err_dw = float((wk.grad.float() - ref).abs().max() / ref.abs().max())
+            if not err_dw <= (1e-5 if dtype == torch.float32 else 1e-2):
+                raise AssertionError(f"{name} dw: max|Δ|/max|ref| {err_dw:.3e}")
+            n_bytes = (x.numel() + w.numel() + x.numel()) * x.element_size()
+            flops = 2 * TRAIN_BATCH * side * side * c * c * 9
+            dx = lambda: conv3x3.conv3x3_same(gy, w.flip(0, 1).transpose(2, 3).contiguous())
+            row = dict(
+                dtype=dname, shape=[TRAIN_BATCH, side, side, c, c],
+                launches_per_step=2 * per_fwd, route=route,
+                max_abs_err=max(err_dx, err_lib), dw_rel_err=err_dw, atol=atol, rtol=rtol,
+                fwd_ms=_graph_ms(lambda: conv3x3.conv3x3_same(x, w)),
+                dx_ms=_graph_ms(dx),
+                eager_fwd_ms=_time_ms(lambda: conv3x3.conv3x3_same(x, w)),
+                eager_dx_ms=_time_ms(dx),
+                plain_fwd_ms=_graph_ms(lambda: conv3x3.conv3x3_reference(x, w)),
+                plain_dx_ms=_graph_ms(lambda: conv3x3.conv3x3_reference(gy, w_t)),
+                library_fwd_ms=_graph_ms(lambda: F.conv2d(nchw(x), w_oihw, padding=1)),
+                library_dx_ms=_graph_ms(lambda: F.grad.conv2d_input(
+                    nchw(x).shape, w_oihw, nchw(gy), padding=1)),
+                dw_ms=_graph_ms(lambda: F.grad.conv2d_weight(
+                    nchw(x), w_oihw.shape, nchw(gy), padding=1)),
+                **_bound(n_bytes, flops, dname))
+            rows.append(row)
+            print(f"[B2-bwd] {name} x({TRAIN_BATCH},{side},{side},{c}): dx max|Δ| "
+                  f"{err_dx:.3e} vs plain, {err_lib:.3e} vs cuDNN conv2d_input (atol {atol:g}, "
+                  f"rtol {rtol:g}); dw (cuDNN) rel {err_dw:.2e}  device ms (CUDA graph): "
+                  f"fwd {row['fwd_ms']:.4f}, dx {row['dx_ms']:.4f} (with the weight flip), "
+                  f"plain fwd/dx {row['plain_fwd_ms']:.4f}/{row['plain_dx_ms']:.4f}, cuDNN "
+                  f"fwd/dx {row['library_fwd_ms']:.4f}/{row['library_dx_ms']:.4f}, dw "
+                  f"{row['dw_ms']:.4f}; eager fwd/dx {row['eager_fwd_ms']:.4f}/"
+                  f"{row['eager_dx_ms']:.4f}; bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                  f"each; launches/step={2 * per_fwd} route={route}", flush=True)
+            del x, w, gy, xk, wk, xp, wp, dx_lib
+        per_step = [r for r in rows if r["dtype"] == dname]
+        tot = lambda key: sum(r[key] * r["launches_per_step"] / 2 for r in per_step)
+        print(f"[B2-bwd] {dname} per training step (13 forward + 13 dx launches), device ms: "
+              f"B2 {tot('fwd_ms') + tot('dx_ms'):.3f} (fwd {tot('fwd_ms'):.3f}, dx "
+              f"{tot('dx_ms'):.3f}), plain {tot('plain_fwd_ms') + tot('plain_dx_ms'):.3f}, "
+              f"cuDNN {tot('library_fwd_ms') + tot('library_dx_ms'):.3f}, bound "
+              f"{2 * tot('bound_ms'):.3f}; dw by cuDNN {tot('dw_ms'):.3f}; eager (host "
+              f"included) B2 {tot('eager_fwd_ms') + tot('eager_dx_ms'):.3f}", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_yaml(cfg, root: str, name: str, **train) -> str:
+    """A config file for one `apps.train` run: `cfg` with its own
+    checkpoint directory and these train settings."""
+    import copy
+    import os
+
+    from renderih_tpu_torch.config import dump_config
+
+    cfg = copy.deepcopy(cfg)
+    cfg.train.checkpoint_dir = os.path.join(root, name)
+    for key, val in train.items():
+        setattr(cfg.train, key, val)
+    path = os.path.join(root, f"{name}.yaml")
+    dump_config(cfg, path)
+    return path
+
+
+def _state_gap(path_a: str, path_b: str, path_before: str) -> dict:
+    """How far checkpoint b is from checkpoint a, the same step of two
+    runs that left `path_before`: the largest parameter difference over
+    the step's own largest move (max|a − before|), the Adam moments' and
+    the BatchNorm statistics' largest difference relative to each
+    tensor's largest value, and whether the step counters agree."""
+    import torch
+
+    load = lambda p: torch.load(f"{p}/state.pt", weights_only=True, map_location="cpu")
+    a, b, before = load(path_a), load(path_b), load(path_before)
+
+    def rel(x, y):  # y the reference
+        err, scale = float((x - y).abs().max()), float(y.abs().max())
+        return err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+    is_bn = lambda k: k.endswith(("running_mean", "running_var"))
+    params = [k for k, v in a["model"].items() if v.is_floating_point() and not is_bn(k)]
+    move = max(float((a["model"][k] - before["model"][k]).abs().max()) for k in params)
+    p_gap = max(float((b["model"][k] - a["model"][k]).abs().max()) for k in params) / move
+    bn_gap = max(rel(b["model"][k], a["model"][k]) for k in a["model"] if is_bn(k))
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    m_gap = float("inf") if sa.keys() != sb.keys() else max(
+        rel(sb[i][key], sa[i][key]) for i in sa for key in ("exp_avg", "exp_avg_sq"))
+    steps_equal = (a["step"] == b["step"] and sa.keys() == sb.keys()
+                   and all(float(sa[i]["step"]) == float(sb[i]["step"]) for i in sa))
+    return dict(params=p_gap, moments=m_gap, bn=bn_gap, steps_equal=steps_equal)
+
+
+def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
+    """The training path on the card (see the module docstring, phase 8)."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import train as train_app
+    from renderih_tpu_torch.data.interhand import PackedInterHand
+    from renderih_tpu_torch.data.pipeline import device_augment
+    from renderih_tpu_torch.kernels import _build, conv3x3, fused_attention, sdf
+    from renderih_tpu_torch.models import init_model
+    from renderih_tpu_torch.train.state import create_train_state
+    from renderih_tpu_torch.train.trainer import make_train_step
+
+    per_step = 2 * sum(n for _, _, n in conv_shapes(cfg))  # 13 forward + 13 dx
+    common = ["--synthetic", "--synth_n", str(TRAIN_SYNTH_N), "--device", DEVICE,
+              "--steps", str(TRAIN_STEPS)]
+    spe = TRAIN_SYNTH_N // cfg.train.batch_size
+    cut_epoch = (TRAIN_STEPS - 1) // spe  # the last whole epoch before the end
+    yaml = lambda root, name: _train_yaml(cfg, root, name, log_every=1, save_gap=cut_epoch,
+                                          seed=0)
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        counters = (conv3x3.launches, fused_attention.launches, sdf.launches,
+                    *conv3x3.routes.values())
+        for counter in counters:
+            counter.reset()
+        a = train_app.main(["--cfg", yaml(root, "straight"), *common])
+        launches = {"conv3x3": conv3x3.launches.value,
+                    "fused_mha": fused_attention.launches.value, "sdf_grid": sdf.launches.value}
+        routes = _routes()
+        n_steps = a["final_step"]
+        want = {"conv3x3": per_step * n_steps, "fused_mha": 0, "sdf_grid": 0}
+        print(f"[train] apps.train --synthetic --synth_n {TRAIN_SYNTH_N} --steps {TRAIN_STEPS}, "
+              f"Config() at batch {cfg.train.batch_size}: {n_steps} steps, launches "
+              f"{launches} (expected {want}), B2 routes {routes}", flush=True)
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches} != {want}")
+        if routes != {"simt": 0, "wgmma": want["conv3x3"]}:
+            raise AssertionError(f"B2 routes {routes}: every launch must be wgmma")
+        for step, terms in a["logged"]:
+            if not all(np.isfinite(v) for v in terms.values()) or terms["skipped_nonfinite"]:
+                raise AssertionError(f"step {step}: terms {terms}")
+        first, last = a["logged"][0][1], a["logged"][-1][1]
+        print(f"[train] loss {first['total']:.4f} -> {last['total']:.4f} over {n_steps} steps "
+              f"(warmup lr), every term finite, none skipped", flush=True)
+
+        # The run's epoch_<cut> checkpoint in a directory of its own, then
+        # --resume auto there to the last step: its terms and final state
+        # against the uninterrupted run's; then the same with the
+        # checkpoint's optimizer state dropped, which the check must see.
+        cut, step0 = f"epoch_{cut_epoch}", cut_epoch * spe
+
+        def resume(name: str, drop_moments: bool = False) -> tuple:
+            shutil.copytree(f"{root}/straight/_synth_data", f"{root}/{name}/_synth_data")
+            shutil.copytree(f"{root}/straight/{cut}", f"{root}/{name}/{cut}")
+            if drop_moments:
+                blob = torch.load(f"{root}/{name}/{cut}/state.pt", weights_only=True)
+                blob["optimizer"]["state"] = {}
+                torch.save(blob, f"{root}/{name}/{cut}/state.pt")
+            out = train_app.main(["--cfg", yaml(root, name), *common, "--resume", "auto"])
+            if out["logged"][0][0] != step0 + 1 or out["final_step"] != n_steps:
+                raise AssertionError(f"the resumed run did not continue at step {step0 + 1}")
+            ref = dict(a["logged"])[step0 + 1]
+            terms = max(abs(out["logged"][0][1][k] - v) / max(abs(v), 1e-12)
+                        for k, v in ref.items())
+            return terms, _state_gap(a["checkpoint"], out["checkpoint"], f"{root}/straight/{cut}")
+
+        diff, gap = resume("resumed")
+        _, fault = resume("dropped_moments", drop_moments=True)
+        within = lambda g: (g["steps_equal"] and g["params"] <= RESUME_TOL
+                            and g["moments"] <= RESUME_TOL and g["bn"] <= RESUME_TOL)
+        show = lambda g: (f"parameters {g['params']:.3e} of the step's largest move, moments "
+                          f"{g['moments']:.3e}, BatchNorm statistics {g['bn']:.3e}, steps "
+                          f"{'equal' if g['steps_equal'] else 'differ'}")
+        print(f"[train] --resume auto from {cut} (step {step0}) to step {n_steps}: terms vs the "
+              f"uninterrupted run rel max|Δ| {diff:.3e} (limit 1e-4); final state: {show(gap)} "
+              f"(limit {RESUME_TOL:g}); planted fault, the checkpoint's optimizer state "
+              f"dropped: {show(fault)}", flush=True)
+        if not (diff <= 1e-4 and within(gap)):
+            raise AssertionError("the resumed run left the uninterrupted one")
+        if fault["params"] <= RESUME_TOL or fault["moments"] <= RESUME_TOL:
+            raise AssertionError("the resume check did not see a checkpoint without its moments")
+
+        ips = a["images_per_s"]
+        steady = a["step_seconds"][train_app.WARMUP_STEPS:]
+        print(f"[train] flagship training bf16 encoder + f32 decoder, batch "
+              f"{cfg.train.batch_size}: {ips:.1f} images/s, {1e3 * np.median(steady):.1f} ms a step "
+              f"(median of steps {train_app.WARMUP_STEPS + 1}-{n_steps}; each step ends at its "
+              f"NaN-guard sync) on {gpu_line}", flush=True)
+
+        # 10 steps on one fixed batch lower the loss
+        fcfg = copy.deepcopy(cfg)
+        fcfg.train.warmup_epochs, fcfg.train.lr = 0, 1e-3
+        data = PackedInterHand.load(f"{root}/straight/_synth_data", "train")
+        raw = {k: torch.from_numpy(v).to(DEVICE)
+               for k, v in data.batch(np.arange(cfg.train.batch_size)).items()}
+        batch = device_augment(raw, torch.Generator(device=DEVICE).manual_seed(0),
+                               img_size=cfg.model.img_size)
+        model = init_model(fcfg, assets, torch.Generator().manual_seed(0))
+        state = create_train_state(fcfg, model.to(DEVICE, memory_format=torch.channels_last),
+                                   steps_per_epoch=1000)
+        step = make_train_step(fcfg, assets, 1000, DEVICE)
+        losses = [float(step(state, batch, torch.Generator(device=DEVICE).manual_seed(1))["total"])
+                  for _ in range(FIXED_BATCH_STEPS)]
+        print(f"[train] {FIXED_BATCH_STEPS} AdamW steps (lr 1e-3, no warmup) on one fixed batch: "
+              f"loss {' '.join(f'{v:.2f}' for v in losses)}", flush=True)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
+        result = dict(steps=n_steps, launches=launches, launches_per_step=per_step,
+                      routes=routes, images_per_s=ips,
+                      step_ms=1e3 * float(np.median(steady)), step_seconds=a["step_seconds"],
+                      loss_first=first["total"], loss_last=last["total"],
+                      resume_terms_rel=diff, resume_state=gap, resume_fault=fault,
+                      fixed_batch_losses=losses)
+        if profile:
+            result["profile"] = profile_phase(
+                f"one training step at batch {cfg.train.batch_size}",
+                lambda: float(step(state, batch)["total"]))
+    del state, model, batch, raw
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_parity_phase(cfg, assets) -> dict:
+    """Card against CPU: one SGD step of the flagship in f32 (see the
+    module docstring, phase 9)."""
+    import copy
+
+    import torch
+
+    from renderih_tpu_torch.data.synthetic import synthetic_batch
+    from renderih_tpu_torch.models import init_model
+    from renderih_tpu_torch.models.layers import BatchNorm2d
+    from renderih_tpu_torch.train.state import create_train_state
+    from renderih_tpu_torch.train.trainer import make_train_step
+
+    pcfg = copy.deepcopy(cfg)
+    pcfg.train.optimizer, pcfg.train.precision, pcfg.train.lr = "sgd", "f32", 1.0
+    pcfg.train.warmup_epochs, pcfg.model.dropout = 0, 0.0
+    size = cfg.model.img_size
+    with torch.no_grad():
+        batch = synthetic_batch(assets, torch.Generator().manual_seed(2), PARITY_BATCH, size)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        model = init_model(pcfg, assets, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for mod in model.encoder.modules():
+                if isinstance(mod, BatchNorm2d):
+                    mod.bias += BN_BIAS_SHIFT
+        model = model.to(dev, memory_format=torch.channels_last)
+        state = create_train_state(pcfg, model, 10)
+        terms = make_train_step(pcfg, assets, 10, dev)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        res[dev] = dict(terms={k: float(v) for k, v in terms.items()},
+                        grads={k: p.grad.cpu() for k, p in model.named_parameters()
+                               if p.grad is not None},
+                        bn={k: v.cpu() for k, v in model.state_dict().items()
+                            if k.endswith(("running_mean", "running_var"))})
+        del state, model
+    card, cpu = res[DEVICE], res["cpu"]
+    term_err = max(abs(card["terms"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["terms"].items())
+    grad_err = {}
+    for k, g in cpu["grads"].items():
+        # Some biases have gradient 0 but for rounding: a key projection's
+        # (a per-query constant on every logit), the stem BatchNorm's (a
+        # constant shift the next BatchNorms remove, once no ReLU clips):
+        # a bias is held against its layer's scale, the larger of its own
+        # gradient and its weight's. A tensor no loss term reaches (the
+        # unread mid level) must be 0 on both.
+        w = k[:-len("bias")] + "weight"
+        scale = float(g.abs().max())
+        if k.endswith(".bias") and w in cpu["grads"]:
+            scale = max(scale, float(cpu["grads"][w].abs().max()))
+        err = float((card["grads"][k] - g).abs().max())
+        grad_err[k] = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+    bn_err = max(float((card["bn"][k] - v).abs().max() / v.abs().max()) for k, v in cpu["bn"].items())
+    worst = sorted(grad_err, key=grad_err.get, reverse=True)[:3]
+    share = {t: sum(e <= t for e in grad_err.values()) / len(grad_err)
+             for t in (1e-4, 1e-3, 3e-3, 1e-2)}
+    print(f"[train-parity] one SGD step, Config() in f32, TF32 off, dropout 0, batch "
+          f"{PARITY_BATCH}, encoder BatchNorm biases +{BN_BIAS_SHIFT:g}, card vs CPU: loss terms "
+          f"rel max|Δ| {term_err:.2e} (limit 1e-4); gradients, max|Δ|/max|g| per tensor: "
+          f"worst {', '.join(f'{grad_err[k]:.2e} ({k})' for k in worst)}; of {len(grad_err)} "
+          f"tensors {100 * share[1e-4]:.1f}% within 1e-4, {100 * share[1e-3]:.1f}% within 1e-3, "
+          f"{100 * share[3e-3]:.1f}% within 3e-3, {100 * share[1e-2]:.1f}% within 1e-2 (limits: "
+          f"every tensor {GRAD_TOL[0]:g}, {100 * GRAD_TOL[2]:g}% within {GRAD_TOL[1]:g}); "
+          f"BatchNorm statistics {bn_err:.2e} (limit 1e-5)", flush=True)
+    if card["grads"].keys() != cpu["grads"].keys():
+        raise AssertionError("card and CPU trained different parameters")
+    if not (term_err <= 1e-4 and grad_err[worst[0]] <= GRAD_TOL[0]
+            and share[GRAD_TOL[1]] >= GRAD_TOL[2]
+            and bn_err <= 1e-5):
+        raise AssertionError("card and CPU training steps disagree")
+    return dict(terms_rel=term_err, grad_rel=grad_err, grad_share=share, bn_rel=bn_err)
+
+
 def _summary(rows: list, launches: int) -> dict:
     """One kernel's totals over the launches of one unit of its path (a
     flagship forward at batch 256; a refined sample)."""
@@ -765,6 +1142,21 @@ def _summary(rows: list, launches: int) -> dict:
                 bound_by="bytes" if t_bytes >= bound else "operations",
                 library_ms=None if any(r["library_ms"] is None for r in rows)
                 else total("library_ms"))
+
+
+def _train_summary(rows: list, launches: int) -> dict:
+    """B2 over one training step: each shape's forward and dx (a launch
+    each) times its launches a forward."""
+    def total(key):
+        return sum(r[key] * r["launches_per_step"] / 2 for r in rows)
+
+    t_bytes, t_ops = 2 * total("bytes_ms"), 2 * total("ops_ms")
+    bound = max(t_bytes, t_ops)
+    return dict(launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=total("fwd_ms") + total("dx_ms"),
+                plain_ms=total("plain_fwd_ms") + total("plain_dx_ms"), bound_ms=bound,
+                bound_by="bytes" if t_bytes >= bound else "operations",
+                library_ms=total("library_fwd_ms") + total("library_dx_ms"))
 
 
 def run(json_path: str | None, profile: bool) -> int:
@@ -812,6 +1204,9 @@ def run(json_path: str | None, profile: bool) -> int:
     on_path = [r for r in rows["sdf_grid"] if r["mesh"] == "hand" and r["grid"] == SYNTH_GRID]
     for r in on_path:
         r["launches_per_forward"] = synth["per_sample"]
+    bwd_rows = conv_backward_phase(cfg)
+    train = train_phase(cfg, assets, gpu_line, profile)
+    train_parity = train_parity_phase(cfg, assets)
     per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
     b3_ms = synth["per_sample"] * on_path[0]["ms"]
     print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
@@ -820,15 +1215,19 @@ def run(json_path: str | None, profile: bool) -> int:
 
     src = "renderih_tpu_torch"
     kernels = [
-        dict(name="conv3x3_same", route="cuda", source=f"{src}/csrc/conv3x3.cu",
+        dict(name="conv3x3_same", path="serve", route="cuda", source=f"{src}/csrc/conv3x3.cu",
              replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_summary([r for r in rows["conv3x3"] if r["dtype"] == "bfloat16"],
                         path["launches"]["conv3x3"])),
-        dict(name="fused_mha", route="cuda", source=f"{src}/csrc/fused_attention.cu",
+        dict(name="conv3x3_same", path="train", route="cuda", source=f"{src}/csrc/conv3x3.cu",
+             replaces="renderih_tpu/kernels/conv_pallas.py:160",
+             **_train_summary([r for r in bwd_rows if r["dtype"] == "bfloat16"],
+                              train["launches"]["conv3x3"])),
+        dict(name="fused_mha", path="serve", route="cuda", source=f"{src}/csrc/fused_attention.cu",
              replaces="renderih_tpu/kernels/fused_attention.py:43",
              **_summary([r for r in rows["fused_mha"] if r["dtype"] == "float32"],
                         path["launches"]["fused_mha"])),
-        dict(name="sdf_grid", route="cuda", source=f"{src}/csrc/sdf.cu",
+        dict(name="sdf_grid", path="synth", route="cuda", source=f"{src}/csrc/sdf.cu",
              replaces="renderih_tpu/kernels/sdf_pallas.py:124",
              **dict(_summary(on_path, synth["launches"]["sdf_grid"]),
                     max_abs_err=max(r["max_abs_err"] for r in rows["sdf_grid"]))),
@@ -837,7 +1236,9 @@ def run(json_path: str | None, profile: bool) -> int:
         with open(json_path, "w") as f:
             json.dump({"card": gpu_line, "torch": torch.__version__, "rows": rows,
                        "main_path": path, "parity": errs, "synth_path": synth,
-                       "refine_parity": refine, "kernels": kernels}, f, indent=1)
+                       "refine_parity": refine, "conv_backward": bwd_rows,
+                       "train_path": train, "train_parity": train_parity,
+                       "kernels": kernels}, f, indent=1)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -851,8 +1252,8 @@ def main() -> int:
     parser.add_argument("--json", help="also write every measurement to this file")
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one flagship "
-                             "predict at the largest bucket and over one refined "
-                             "sample (torch.profiler)")
+                             "predict at the largest bucket, one refined sample and "
+                             "one training step (torch.profiler)")
     args = parser.parse_args()
     try:
         return run(args.json, args.profile)

@@ -5,8 +5,9 @@ levels, the positional-encoding colors, the 778 x V_out upsampling
 initializer and the 21-joint regressor, built from converted real assets
 (`load_assets`) or deterministically synthetic (`make_synthetic_assets`).
 Every tensor lives on the CPU; the model copies what it needs to its
-device, and `manos_to` moves the two MANO models for the MANO-only paths
-(pose refinement, synthetic data).
+device, `manos_to` moves the two MANO models for the MANO-only paths
+(pose refinement, synthetic data) and `assets_to` the whole bundle for
+the training loss.
 
 The synthetic mesh coarsens to 61/122/244 nodes (real MANO: 63/126/252);
 nothing here assumes either.
@@ -63,6 +64,17 @@ def manos_to(assets: Assets, device: torch.device | str) -> Assets:
     path that runs MANO many times there)."""
     return Assets(left=replace(assets.left, mano=to_device(assets.left.mano, device)),
                   right=replace(assets.right, mano=to_device(assets.right.mano, device)))
+
+
+def assets_to(assets: Assets, device: torch.device | str) -> Assets:
+    """The same bundle with every tensor on `device` (the loss reads the
+    joint regressor, faces, permutation and upsample initializer there)."""
+    def hand(h: HandAssets) -> HandAssets:
+        return replace(h, mano=to_device(h.mano, device), **{
+            name: getattr(h, name).to(device)
+            for name in ("pe", "upsample_init", "j_reg_21", "perm", "perm_reverse")})
+
+    return Assets(left=hand(assets.left), right=hand(assets.right))
 
 
 def _dense_color_from_template(mano: ManoModel) -> np.ndarray:

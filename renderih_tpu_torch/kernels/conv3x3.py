@@ -12,8 +12,13 @@ On the card the C launcher picks one of two kernels and reports which:
 `wgmma` (Hopper tensor cores; bf16 with Cin % 16 == 0, Cout % 8 == 0 and
 16-byte aligned tensors) or `simt` (CUDA cores; f32 and every other
 input). `routes` counts the launches of each beside `launches`.
-The kernel has no backward yet, so on the card it refuses inputs that
-require grad while grad mode is on.
+
+Backward (`_Conv3x3Fn`, the counterpart of `conv_pallas.py:_bwd`): the
+exact transpose pair. dx is itself a stride-1 SAME 3x3 conv of the output
+gradient with the kernel flipped in space and its channels swapped, so it
+runs through the same launch (and counts in `launches` and `routes`); dw
+is the stock `torch.nn.grad.conv2d_weight` (cuDNN on the card), as the
+JAX package computes it with XLA outside its kernel.
 """
 
 from __future__ import annotations
@@ -61,7 +66,38 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv3x3_same: x (NHWC) and w (HWIO) must be contiguous")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise RuntimeError("conv3x3_same has no backward on the card yet")
+        return _Conv3x3Fn.apply(x, w)
+    return _launch(x, w)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward without autograd: the plain version for a CPU tensor
+    (any float dtype, for `gradcheck`), else the kernel."""
+    return conv3x3_reference(x, w) if x.device.type == "cpu" else _launch(x, w)
+
+
+class _Conv3x3Fn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _conv(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()  # arrives as the NHWC view of an NCHW gradient
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv(g, w.flip(0, 1).transpose(2, 3).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(
+                x.permute(0, 3, 1, 2), (w.shape[3], w.shape[2], 3, 3),
+                g.permute(0, 3, 1, 2), padding=1).permute(2, 3, 1, 0)
+        return dx, dw
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on validated CUDA tensors."""
     b, h, wd, cin = x.shape
     cout = w.shape[3]
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from renderih_tpu_torch.kernels import _build
+from renderih_tpu_torch.ops.dropout import dropout
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -41,8 +42,7 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = torch.tensor(1.0 / d ** 0.5, dtype=q.dtype, device=q.device)
     logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
     attn = torch.softmax(logits, dim=-1)
-    if training and dropout_p > 0:
-        attn = torch.nn.functional.dropout(attn, dropout_p, training=True)
+    attn = dropout(attn, dropout_p, training)
     out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
     return out.reshape(b, n, h * d)
 

@@ -24,6 +24,7 @@ from torch import nn
 
 from renderih_tpu_torch.kernels.fused_attention import fused_mha, mha_reference
 from renderih_tpu_torch.models.layers import Conv2d, Linear
+from renderih_tpu_torch.ops.dropout import dropout
 
 _LN_EPS = 1e-6
 
@@ -40,8 +41,8 @@ class MlpResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.fc1(self.layer_norm(x)))
-        h = F.dropout(h, self.dropout, self.training)
-        h = F.dropout(self.fc2(h), self.dropout, self.training)
+        h = dropout(h, self.dropout, self.training)
+        h = dropout(self.fc2(h), self.dropout, self.training)
         return x + h
 
 
@@ -77,7 +78,7 @@ class SelfAttn(nn.Module):
         h = self.layer_norm(x)
         out = _mha(self.w_qs(h), self.w_ks(h), self.w_vs(h), self.n_heads,
                    self.dropout, self.training)
-        out = F.dropout(self.fc(out), self.dropout, self.training)
+        out = dropout(self.fc(out), self.dropout, self.training)
         return self.ff(x + out)
 
 
@@ -116,8 +117,8 @@ class InterAttn(nn.Module):
                         self.n_heads, self.dropout, self.training)
         feat_l2r = _mha(self.w_qs(rf2), self.w_ks(rf2), self.w_vs(lf2),
                         self.n_heads, self.dropout, self.training)
-        feat_r2l = F.dropout(self.fc(feat_r2l), self.dropout, self.training)
-        feat_l2r = F.dropout(self.fc(feat_l2r), self.dropout, self.training)
+        feat_r2l = dropout(self.fc(feat_r2l), self.dropout, self.training)
+        feat_l2r = dropout(self.fc(feat_l2r), self.dropout, self.training)
         return self.ffL(lf + feat_r2l), self.ffR(rf + feat_l2r)
 
 

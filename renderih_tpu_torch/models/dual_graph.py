@@ -19,6 +19,7 @@ from torch import nn
 from renderih_tpu_torch.graph.ops import graph_upsample
 from renderih_tpu_torch.models.attention import ImgEx, InterAttn
 from renderih_tpu_torch.models.layers import Linear
+from renderih_tpu_torch.ops.dropout import dropout
 
 _LN_EPS = 1e-6
 
@@ -40,7 +41,7 @@ class GcnResBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(F.relu(self.norm1(x)))
         h = self.fc2(F.relu(self.norm2(h)))
-        h = F.dropout(h, self.dropout, self.training)
+        h = dropout(h, self.dropout, self.training)
         return self.norm3(h + self.shortcut(x))
 
 

@@ -82,9 +82,13 @@ class HandNet(nn.Module):
         """img: (B, H, W, 3) ImageNet-normalised RGB."""
         x = img.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, channels_last
         pyramid = self.encoder(x)
-        n_levels = len(self.decoder.verts_nums)
+        # The decoder reads the first len(verts_nums) maps. Training projects
+        # all of them, as the JAX package does: the unread map's BatchNorm
+        # still updates its running statistics there.
+        n_levels = None if self.training else len(self.decoder.verts_nums)
         global_feature, fmaps = self.mid_model(pyramid, n_levels)
-        return self.decoder(global_feature.float(), [f.float() for f in fmaps],
+        used = fmaps[:len(self.decoder.verts_nums)]
+        return self.decoder(global_feature.float(), [f.float() for f in used],
                             pe_left, pe_right, bbox_info)
 
 

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from renderih_tpu_torch.kernels.conv3x3 import conv3x3_same
-from renderih_tpu_torch.models.layers import Conv2d
+from renderih_tpu_torch.models.layers import BatchNorm2d, Conv2d
 
 _STAGES = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -46,7 +46,7 @@ def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential | None:
     if stride == 1 and cin == cout:
         return None
     return nn.Sequential(Conv2d(cin, cout, 1, stride, bias=False),
-                         nn.BatchNorm2d(cout))
+                         BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
@@ -55,9 +55,9 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, width: int, stride: int = 1):
         super().__init__()
         self.conv1 = Conv3x3(cin, width, stride)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = Conv3x3(width, width)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.downsample = _downsample(cin, width, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,11 +74,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         out_dim = width * self.expansion
         self.conv1 = Conv2d(cin, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = Conv3x3(width, width, stride)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = Conv2d(width, out_dim, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_dim)
+        self.bn3 = BatchNorm2d(out_dim)
         self.downsample = _downsample(cin, out_dim, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +99,7 @@ class ResNet(nn.Module):
         block = Bottleneck if kind == "bottleneck" else BasicBlock
         self.expansion = block.expansion
         self.conv1 = Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         cin = 64
         for stage, num_blocks in enumerate(counts):
@@ -137,7 +137,7 @@ class ResNetMid(nn.Module):
         super().__init__()
         self.convs = nn.ModuleList(
             nn.Sequential(Conv2d(cin, cout, 1, bias=False), nn.ReLU(),
-                          nn.BatchNorm2d(cout))
+                          BatchNorm2d(cout))
             for cin, cout in zip(in_dims, out_dims))
 
     def forward(self, pyramid: list, n_levels: int | None = None):

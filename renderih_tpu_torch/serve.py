@@ -6,7 +6,8 @@
     bucket (the largest if none covers it), uploaded as uint8 and
     normalised on the device; outputs come back as numpy in mesh-vertex
     order. Weights come from a `state_dict` (upstream torch layout, e.g.
-    `utils/weights.py:state_dict_from_jax`) or are drawn from a seed.
+    `utils/weights.py:state_dict_from_jax`), from a training checkpoint
+    directory (`checkpoint`, see `train/state.py`) or are drawn from a seed.
   * `BatchingServer` — a thread-safe dynamic batcher on top: concurrent
     `submit()` calls are coalesced for up to `max_wait_ms` and run as one
     padded device batch; callers get futures.
@@ -59,6 +60,7 @@ class InferenceEngine:
         buckets: tuple = DEFAULT_BUCKETS,
         device: torch.device | str | None = None,
         seed: int = 0,
+        checkpoint: str | None = None,
     ):
         # own copy: never mutate a caller's Config
         self.cfg = copy.deepcopy(cfg) if cfg is not None else Config()
@@ -67,6 +69,12 @@ class InferenceEngine:
         self.buckets = tuple(sorted(buckets))
         model = init_model(self.cfg, self.assets,
                            torch.Generator().manual_seed(seed))
+        if checkpoint is not None:
+            if state_dict is not None:
+                raise ValueError("pass a state_dict or a checkpoint, not both")
+            from renderih_tpu_torch.train.state import checkpoint_state_dict
+
+            state_dict = checkpoint_state_dict(checkpoint)
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()

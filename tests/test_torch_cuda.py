@@ -146,11 +146,99 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         conv3x3.conv3x3_same(x.half(), w.half())
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3.conv3x3_same(x.transpose(1, 2), w)
-    with pytest.raises(RuntimeError, match="backward"):
-        conv3x3.conv3x3_same(x, w.requires_grad_())
     q = torch.randn(1, 5, 4, 8, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fused_attention.fused_mha(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side,c", [(64, 64), (32, 128), (16, 256), (8, 512)])
+def test_conv3x3_backward_matches_plain_autograd(cuda, side, c, dtype):
+    """The training shapes of B2 (batch 2 here): dx through the kernel (its
+    `wgmma` route in bf16), dw by cuDNN, against the plain version's
+    autograd; the output gradient arrives as the NHWC view of an NCHW
+    tensor, as the ResNet gives it."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2, side, side, c, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(3, 3, c, c, device=cuda, generator=g) / (9 * c) ** 0.5).to(dtype)
+    gy = torch.randn(2, c, side, side, device=cuda, generator=g).to(dtype).permute(0, 2, 3, 1)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    n, routes = conv3x3.launches.value, _routes()
+    conv3x3.conv3x3_same(xk, wk).backward(gy)
+    torch.cuda.synchronize()
+    assert conv3x3.launches.value == n + 2  # forward and dx
+    routes[_conv_route(dtype, c, c)] += 2
+    assert _routes() == routes
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    conv3x3.conv3x3_reference(xp, wp).backward(gy)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(xk.grad.float(), xp.grad.float(), atol=atol, rtol=rtol)
+    # dw sums B·H·W products: hold it relative to its largest element
+    err = (wk.grad.float() - wp.grad.float()).abs().max() / wp.grad.float().abs().max()
+    assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
+
+
+def _raise_bn_biases(model, shift: float = 3.0):
+    """Keep every ReLU input after an encoder BatchNorm away from 0, so
+    that rounding cannot send it across the kink one way on the card and
+    the other on the CPU (tests/test_torch_train.py says why)."""
+    with torch.no_grad():
+        for mod in model.encoder.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.bias += shift
+
+
+def test_sgd_step_on_card_matches_cpu(cuda):
+    """One SGD step of the small config, f32, TF32 off, dropout 0, batch 4,
+    from the same weights and batch: loss terms within 1e-4 relative,
+    BatchNorm statistics within 1e-5 of each buffer's largest value, every
+    gradient within 2e-2·max|g| of its tensor and 95% of the tensors
+    within 3e-3, the limits of chip_smoke.py's phase 9, which says why (a
+    bias against the larger of its gradient and its weight's: some
+    biases' gradients are rounding noise around 0); 26 B2 launches (13
+    forward, 13 dx)."""
+    from renderih_tpu_torch.data.synthetic import synthetic_batch
+    from renderih_tpu_torch.models import init_model
+    from renderih_tpu_torch.train.state import create_train_state
+    from renderih_tpu_torch.train.trainer import make_train_step
+
+    cfg = load_config(overrides={
+        "model": {"encoder": "resnet18", "img_size": 128, "grid_size": 4,
+                  "graph_layer_num": 2, "dropout": 0.0},
+        "train": {"precision": "f32", "optimizer": "sgd", "lr": 1.0, "warmup_epochs": 0}})
+    assets = make_synthetic_assets(0)
+    batch = synthetic_batch(assets, torch.Generator().manual_seed(0), 4, 128)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = init_model(cfg, assets, torch.Generator().manual_seed(0))
+        _raise_bn_biases(model)
+        state = create_train_state(cfg, model.to(dev), 10)
+        n = conv3x3.launches.value
+        terms = make_train_step(cfg, assets, 10, dev)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = dict(
+            launches=conv3x3.launches.value - n,
+            terms={k: float(v) for k, v in terms.items()},
+            grads={k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None},
+            bn={k: v.cpu() for k, v in model.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))})
+    card, cpu = out[str(cuda)], out["cpu"]
+    assert card["launches"] == 26 and cpu["launches"] == 0
+    for k, ref in cpu["terms"].items():
+        assert abs(card["terms"][k] - ref) <= 1e-4 * abs(ref) + 1e-7, (k, card["terms"][k], ref)
+    assert card["grads"].keys() == cpu["grads"].keys()
+    close = []
+    for k, ref in cpu["grads"].items():
+        w = k[:-len("bias")] + "weight"
+        scale = float(ref.abs().max())
+        if k.endswith(".bias") and w in cpu["grads"]:
+            scale = max(scale, float(cpu["grads"][w].abs().max()))
+        err = float((card["grads"][k] - ref).abs().max())
+        assert err <= 2e-2 * scale, (k, err, scale)  # 0 on both where no loss term reaches
+        close.append(err <= 3e-3 * scale)
+    assert np.mean(close) >= 0.95, np.mean(close)
+    for k, ref in cpu["bn"].items():
+        assert (card["bn"][k] - ref).abs().max() <= 1e-5 * ref.abs().max(), k
 
 
 def test_engine_on_card_matches_cpu_and_launches_the_kernels(cuda):

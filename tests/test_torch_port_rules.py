@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, renderih_tpu_torch.serve, renderih_tpu_torch.utils.weights, "
             "renderih_tpu_torch.tools.synth_gen, renderih_tpu_torch.optimize, "
-            "renderih_tpu_torch.render.renderer, renderih_tpu_torch.render.backgrounds; "
+            "renderih_tpu_torch.render.renderer, renderih_tpu_torch.render.backgrounds, "
+            "renderih_tpu_torch.apps.train, renderih_tpu_torch.train.trainer; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
