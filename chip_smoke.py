@@ -68,8 +68,12 @@ line:
    phase 2, and their sums over a training step (13 forward + 13 dx).
 8. The training path: `apps.train.main` on the card, flagship `Config()`
    at batch 64, `--synthetic --synth_n 256 --steps 21` (4 steps an epoch,
-   a checkpoint at epoch 5, step 20). Exactly 26 B2 launches a step, all
-   on `wgmma`; no B1; every loss term finite at every step. Then that
+   a checkpoint at epoch 5, step 20, then the in-training eval of the
+   64-sample held-out split, EMA off, with its overlays). Exactly 26 B2
+   launches a training step, all on `wgmma`; no B1 in training; the eval's
+   forwards (one a batch of the held-out split, one for the overlays) add
+   13 B2 and 24 B1 each. Every loss term finite at every step; the eval
+   summary finite; the checkpoint holds the steps taken (20). Then that
    checkpoint alone in a new directory and `--resume auto` to step 21:
    its terms against the uninterrupted step 21 (the same state, batch and
    random draws) within 1e-4, and its final checkpoint against the
@@ -84,19 +88,43 @@ line:
    ends at the NaN guard's host sync) and ms a step; with `--profile`, one
    step's device time by kernel.
 9. Card against CPU on that path: one SGD step of `Config()` in f32 (TF32
-   off, dropout 0, batch 4) from one seeded init with the encoder's
-   BatchNorm biases raised by 3 (no ReLU input after a BatchNorm within
-   rounding of 0; tests/test_torch_train.py says why): the loss terms
+   off, dropout 0, batch 4) from `init_model`'s weights with the
+   encoder's BatchNorm biases raised by 3, at two (init, batch) seed pairs
+   (`TRAIN_PARITY_SEEDS`), the CPU taking the card's branch at every ReLU
+   and max-pool (`utils/branches.py`). The raised biases let nearly every
+   ReLU after a BatchNorm pass, so that no channel of a batch-4 BatchNorm
+   is nearly dead and amplifies rounding: from `init_model`'s own biases the
+   loss terms part by up to 3.3e-4 on shared branches. Held: the loss terms
    within 1e-4 relative, the BatchNorm statistics within 1e-5, every
-   parameter's gradient within 2e-2 of its tensor's largest and 95% of
-   the tensors within 3e-3 (`GRAD_TOL`). At this width some ReLU input
-   lies within rounding of its kink for any batch, and a branch taken one
-   way on the card and the other on the CPU moves many tensors by up to
-   ~1e-2: the CPU alone, at one thread against eight, parts by 8.5e-3 at
-   worst with 99.2% of the tensors within 3e-3. A planted fault, the 2-D
-   term's weight 10% off, moves the worst tensor by 0.10 and leaves 3.3%
-   of the tensors within 3e-3. The measured distribution is printed.
-10. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+   parameter's gradient within 2e-2 of its tensor's scale and 95% of the
+   tensors within 3e-3 (`GRAD_TOL`). Without shared branches a ReLU input
+   or max-pool runner-up within rounding of its kink goes one way on the
+   card and the other on the CPU at most draws, and the gradients can part
+   by more than a planted fault does (printed, not held: the CPU's step on
+   its own branches); with them only rounding is left, and the limits hold
+   at every draw tried (tests/test_torch_branches.py,
+   tests/test_torch_cuda.py). A planted fault, the 2-D term's weight 10%
+   off on the same branches, must land outside them (it moves the worst
+   tensor by ~0.10).
+10. The eval path. First its kernels at the batches it runs them at, 512
+   and the CLI's 64: B2 in bf16 (on `wgmma`) and B1 in f32, the flagship's
+   dtypes, at every shape of a forward against their plain versions on
+   random inputs, at phase 2's tolerances. Then `evaluate_packed` on the
+   card, flagship `Config()` with seed-0 weights, on a synthetic split of
+   `EVAL_N` (1024) images at batch `EVAL_BATCH` (512, the JAX CLI's
+   `--bs`), the split cached on the device. Exactly 13 B2 (all `wgmma`) and 24 B1 launches a forward, two
+   forwards. Prints images/s (the second batch: the first is untimed),
+   the cache upload, and the metrics' share of a batch (forward and
+   metrics timed apart with CUDA events). The metrics must be equal bit
+   for bit with TF32 allowed in cuBLAS (they use no matmul: ground-truth
+   vertices in the camera frame put TF32's rounding of −2ab above the
+   3 mm contact threshold). Then, in f32 with TF32 off, card against CPU
+   on 10 images at batch 4 (samples 0-4 with the right hand moved onto the
+   left, so CDev has contact): every per-sample metric within
+   1e-4·max|verts3d| (the CPU tests' bar against JAX) with the same NaN
+   pattern. Then `apps.eval_interhand.main(["--synthetic", "--bs", "64",
+   "--json"])` once (256 images, 4 forwards, their launches counted).
+11. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
    batch 256 in the flagship's dtypes, B2 per training step at batch 64,
    B3 per refined sample), and as the last line
    `{"ok": true, "device": {...}}`.
@@ -128,7 +156,7 @@ SDF_FLOP_PER_PAIR = 80  # the Pallas kernel's cost estimate (sdf_pallas.py:164)
 SYNTH_N, SYNTH_ITERS, SYNTH_GRID = 32, 60, 16
 REFINE_SCHEDULE = ((1.0, 1.0, 3), (0.1, 15.0, 3), (30.0, 0.1, 3), (1.0, 5.0, 3))
 REFINE_LR = 1e-2
-DEVICE = "cuda"  # the card; a CPU rehearsal of phases 4-6 and 8-9 may set "cpu"
+DEVICE = "cuda"  # the card; a CPU rehearsal of phases 4-6 and 8-10 may set "cpu"
 TRAIN_BATCH = 64  # the flagship's batch a card
 TRAIN_SYNTH_N = 256
 TRAIN_STEPS = 21
@@ -136,7 +164,12 @@ RESUME_TOL = 1e-3  # resumed vs uninterrupted step (phase 8)
 GRAD_TOL = (2e-2, 3e-3, 0.95)  # card vs CPU: every tensor, the tier, its share (phase 9)
 FIXED_BATCH_STEPS = 10
 PARITY_BATCH = 4
-BN_BIAS_SHIFT = 3.0  # card-vs-CPU gradients: keeps ReLU inputs after BatchNorm off 0
+TRAIN_PARITY_SEEDS = ((0, 2), (7, 1))  # (init, batch) seeds of phase 9
+BN_BIAS_SHIFT = 3.0  # phase 9: the encoder's BatchNorm biases, raised
+EVAL_N, EVAL_BATCH = 1024, 512
+EVAL_CLI_BATCH = 64  # phase 10's run of apps.eval_interhand
+EVAL_PARITY_N, EVAL_PARITY_BATCH = 10, 4
+EVAL_RTOL = 1e-4  # card vs CPU per-sample metrics, relative to max|verts3d|
 
 
 def _gpu_line() -> str:
@@ -295,6 +328,64 @@ def mha_shapes(cfg, verts_nums) -> list:
     return out
 
 
+def hold_conv(x, w, label: str):
+    """B2 on (x, w) against its plain version at `CONV_TOL`, on the route
+    its dtype takes (`wgmma` in bf16, `simt` in f32): (y, max|Δ|, route)."""
+    import torch
+
+    from renderih_tpu_torch.kernels import conv3x3
+
+    dname = str(x.dtype).split(".")[1]
+    route = "wgmma" if x.dtype == torch.bfloat16 else "simt"
+    before = _routes()
+    y = conv3x3.conv3x3_same(x, w)
+    torch.cuda.synchronize()
+    want_routes = dict(before, **{route: before[route] + 1})
+    if _routes() != want_routes:
+        raise AssertionError(f"{label}: routes {_routes()}, expected {want_routes}")
+    return y, _check(label, y, conv3x3.conv3x3_reference(x, w), *CONV_TOL[dname]), route
+
+
+def hold_mha(q, k, v, label: str):
+    """B1 on (q, k, v) against the float32 plain version on the same
+    (rounded) inputs, at `MHA_TOL` in f32 and `CONV_TOL` in bf16:
+    (out, max|Δ|)."""
+    import torch
+
+    from renderih_tpu_torch.kernels import fused_attention
+
+    tol = MHA_TOL if q.dtype == torch.float32 else CONV_TOL[str(q.dtype).split(".")[1]]
+    out = fused_attention.fused_mha(q, k, v)
+    torch.cuda.synchronize()
+    ref = fused_attention.mha_reference(q.float(), k.float(), v.float())
+    return out, _check(label, out, ref, *tol)
+
+
+def hold_path_kernels(cfg, verts_nums, batch: int, seed: int) -> dict:
+    """B2 in bf16 and B1 in f32, the flagship's dtypes, at every shape
+    of a forward at `batch`, against their plain versions on random
+    inputs: the largest max|Δ| of each."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    worst = {"conv3x3": 0.0, "fused_mha": 0.0}
+    for side, c, _ in conv_shapes(cfg):
+        x = torch.randn(batch, side, side, c, device=dev, generator=g).to(torch.bfloat16)
+        w = (torch.randn(3, 3, c, c, device=dev, generator=g) / (9 * c) ** 0.5).to(torch.bfloat16)
+        err = hold_conv(x, w, f"conv3x3 bfloat16 batch {batch} {side}²x{c}")[1]
+        worst["conv3x3"] = max(worst["conv3x3"], err)
+        del x, w
+    heads = cfg.model.num_attn_heads
+    for n, d, _ in mha_shapes(cfg, verts_nums):
+        q, k, v = (torch.randn(batch, n, heads, d, device=dev, generator=g) for _ in range(3))
+        err = hold_mha(q, k, v, f"fused_mha float32 batch {batch} N={n} D={d}")[1]
+        worst["fused_mha"] = max(worst["fused_mha"], err)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return worst
+
+
 def kernel_phase(cfg, verts_nums) -> dict:
     import torch
     import torch.nn.functional as F
@@ -312,16 +403,7 @@ def kernel_phase(cfg, verts_nums) -> dict:
             x = torch.randn(BATCH, side, side, c, device=dev, generator=g).to(dtype)
             w = (torch.randn(3, 3, c, c, device=dev, generator=g)
                  / (9 * c) ** 0.5).to(dtype)
-            before = _routes()
-            y = conv3x3.conv3x3_same(x, w)
-            torch.cuda.synchronize()
-            route = "wgmma" if dtype == torch.bfloat16 else "simt"
-            want_routes = dict(before, **{route: before[route] + 1})
-            if _routes() != want_routes:
-                raise AssertionError(f"conv3x3 {dname} {side}²x{c}: routes {_routes()}, "
-                                     f"expected {want_routes}")
-            err = _check(f"conv3x3 {dname} {side}²x{c}", y,
-                         conv3x3.conv3x3_reference(x, w), atol, rtol)
+            y, err, route = hold_conv(x, w, f"conv3x3 {dname} {side}²x{c}")
             x_lib = x.permute(0, 3, 1, 2)  # NCHW view, channels_last
             w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             n_bytes = (x.numel() + w.numel() + y.numel()) * x.element_size()
@@ -350,12 +432,7 @@ def kernel_phase(cfg, verts_nums) -> dict:
         for n, d, per_fwd in mha_shapes(cfg, verts_nums):
             q, k, v = (torch.randn(BATCH, n, heads, d, device=dev, generator=g).to(dtype)
                        for _ in range(3))
-            out = fused_attention.fused_mha(q, k, v)
-            torch.cuda.synchronize()
-            # against the float32 plain version on the same (rounded) inputs
-            err = _check(f"fused_mha {dname} N={n} D={d}", out,
-                         fused_attention.mha_reference(q.float(), k.float(), v.float()),
-                         atol, rtol)
+            out, err = hold_mha(q, k, v, f"fused_mha {dname} N={n} D={d}")
             ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
             flops = 4 * BATCH * heads * n * n * d
@@ -945,13 +1022,15 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     from renderih_tpu_torch.train.state import create_train_state
     from renderih_tpu_torch.train.trainer import make_train_step
 
-    per_step = 2 * sum(n for _, _, n in conv_shapes(cfg))  # 13 forward + 13 dx
+    per_fwd_b2 = sum(n for _, _, n in conv_shapes(cfg))  # 13
+    per_fwd_b1 = sum(n for _, _, n in mha_shapes(cfg, assets.left.verts_nums))  # 24
+    per_step = 2 * per_fwd_b2  # 13 forward + 13 dx
     common = ["--synthetic", "--synth_n", str(TRAIN_SYNTH_N), "--device", DEVICE,
               "--steps", str(TRAIN_STEPS)]
     spe = TRAIN_SYNTH_N // cfg.train.batch_size
     cut_epoch = (TRAIN_STEPS - 1) // spe  # the last whole epoch before the end
     yaml = lambda root, name: _train_yaml(cfg, root, name, log_every=1, save_gap=cut_epoch,
-                                          seed=0)
+                                          eval_every=cut_epoch, seed=0)
     _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
         counters = (conv3x3.launches, fused_attention.launches, sdf.launches,
@@ -963,10 +1042,17 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
                     "fused_mha": fused_attention.launches.value, "sdf_grid": sdf.launches.value}
         routes = _routes()
         n_steps = a["final_step"]
-        want = {"conv3x3": per_step * n_steps, "fused_mha": 0, "sdf_grid": 0}
+        if [e["step"] for e in a["evals"]] != [cut_epoch * spe]:
+            raise AssertionError(f"evals at steps {[e['step'] for e in a['evals']]}, expected "
+                                 f"one (EMA off) at step {cut_epoch * spe}")
+        (ev,) = a["evals"]
+        # the eval's forwards: one a batch of the held-out split, one for the overlays
+        n_eval_fwd = -(-ev["summary"]["num_samples"] // cfg.train.batch_size) + 1
+        want = {"conv3x3": per_step * n_steps + per_fwd_b2 * n_eval_fwd,
+                "fused_mha": per_fwd_b1 * n_eval_fwd, "sdf_grid": 0}
         print(f"[train] apps.train --synthetic --synth_n {TRAIN_SYNTH_N} --steps {TRAIN_STEPS}, "
-              f"Config() at batch {cfg.train.batch_size}: {n_steps} steps, launches "
-              f"{launches} (expected {want}), B2 routes {routes}", flush=True)
+              f"Config() at batch {cfg.train.batch_size}: {n_steps} steps and {n_eval_fwd} eval "
+              f"forwards, launches {launches} (expected {want}), B2 routes {routes}", flush=True)
         if launches != want:
             raise AssertionError(f"kernel launches {launches} != {want}")
         if routes != {"simt": 0, "wgmma": want["conv3x3"]}:
@@ -977,6 +1063,18 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
         first, last = a["logged"][0][1], a["logged"][-1][1]
         print(f"[train] loss {first['total']:.4f} -> {last['total']:.4f} over {n_steps} steps "
               f"(warmup lr), every term finite, none skipped", flush=True)
+        metrics = {k: v for k, v in ev["summary"].items() if k.endswith("_mm")}
+        if not all(np.isfinite(v) for k, v in metrics.items() if not k.startswith("cdev")):
+            raise AssertionError(f"eval summary not finite: {metrics}")
+        print(f"[train] eval at epoch {cut_epoch} (step {ev['step']}) of the "
+              f"{ev['summary']['num_samples']}-sample held-out split at batch "
+              f"{cfg.train.batch_size}: {ev['seconds']:.2f} s (the overlays not included); "
+              + ", ".join(f"{k} {v:.2f}" for k, v in metrics.items()), flush=True)
+        taken = torch.load(f"{root}/straight/epoch_{cut_epoch}/state.pt", weights_only=True,
+                           map_location="cpu").get("steps_taken")
+        if taken != cut_epoch * spe:
+            raise AssertionError(f"epoch_{cut_epoch} holds steps_taken {taken}, "
+                                 f"expected {cut_epoch * spe}")
 
         # The run's epoch_<cut> checkpoint in a directory of its own, then
         # --resume auto there to the last step: its terms and final state
@@ -1041,7 +1139,8 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
         result = dict(steps=n_steps, launches=launches, launches_per_step=per_step,
-                      routes=routes, images_per_s=ips,
+                      routes=routes, images_per_s=ips, eval_summary=ev["summary"],
+                      eval_seconds=ev["seconds"],
                       step_ms=1e3 * float(np.median(steady)), step_seconds=a["step_seconds"],
                       loss_first=first["total"], loss_last=last["total"],
                       resume_terms_rel=diff, resume_state=gap, resume_fault=fault,
@@ -1055,9 +1154,10 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     return result
 
 
-def train_parity_phase(cfg, assets) -> dict:
-    """Card against CPU: one SGD step of the flagship in f32 (see the
-    module docstring, phase 9)."""
+def train_parity_phase(cfg, assets) -> list:
+    """Card against CPU: one SGD step of the flagship in f32, the CPU on
+    the card's branches (see the module docstring, phase 9)."""
+    import contextlib
     import copy
 
     import torch
@@ -1067,65 +1167,270 @@ def train_parity_phase(cfg, assets) -> dict:
     from renderih_tpu_torch.models.layers import BatchNorm2d
     from renderih_tpu_torch.train.state import create_train_state
     from renderih_tpu_torch.train.trainer import make_train_step
+    from renderih_tpu_torch.utils.branches import gradient_gaps, record_branches, take_branches
 
     pcfg = copy.deepcopy(cfg)
     pcfg.train.optimizer, pcfg.train.precision, pcfg.train.lr = "sgd", "f32", 1.0
     pcfg.train.warmup_epochs, pcfg.model.dropout = 0, 0.0
-    size = cfg.model.img_size
-    with torch.no_grad():
-        batch = synthetic_batch(assets, torch.Generator().manual_seed(2), PARITY_BATCH, size)
-    res = {}
-    for dev in (DEVICE, "cpu"):
-        model = init_model(pcfg, assets, torch.Generator().manual_seed(0))
+    fault = copy.deepcopy(pcfg)
+    fault.loss.label_2d *= 1.1
+
+    def step(run_cfg, dev, init_seed, batch, branches):
+        model = init_model(run_cfg, assets, torch.Generator().manual_seed(init_seed))
         with torch.no_grad():
             for mod in model.encoder.modules():
                 if isinstance(mod, BatchNorm2d):
                     mod.bias += BN_BIAS_SHIFT
         model = model.to(dev, memory_format=torch.channels_last)
-        state = create_train_state(pcfg, model, 10)
-        terms = make_train_step(pcfg, assets, 10, dev)(
-            state, {k: v.to(dev) for k, v in batch.items()})
-        res[dev] = dict(terms={k: float(v) for k, v in terms.items()},
-                        grads={k: p.grad.cpu() for k, p in model.named_parameters()
-                               if p.grad is not None},
-                        bn={k: v.cpu() for k, v in model.state_dict().items()
-                            if k.endswith(("running_mean", "running_var"))})
-        del state, model
-    card, cpu = res[DEVICE], res["cpu"]
-    term_err = max(abs(card["terms"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["terms"].items())
-    grad_err = {}
-    for k, g in cpu["grads"].items():
-        # Some biases have gradient 0 but for rounding: a key projection's
-        # (a per-query constant on every logit), the stem BatchNorm's (a
-        # constant shift the next BatchNorms remove, once no ReLU clips):
-        # a bias is held against its layer's scale, the larger of its own
-        # gradient and its weight's. A tensor no loss term reaches (the
-        # unread mid level) must be 0 on both.
-        w = k[:-len("bias")] + "weight"
-        scale = float(g.abs().max())
-        if k.endswith(".bias") and w in cpu["grads"]:
-            scale = max(scale, float(cpu["grads"][w].abs().max()))
-        err = float((card["grads"][k] - g).abs().max())
-        grad_err[k] = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
-    bn_err = max(float((card["bn"][k] - v).abs().max() / v.abs().max()) for k, v in cpu["bn"].items())
-    worst = sorted(grad_err, key=grad_err.get, reverse=True)[:3]
-    share = {t: sum(e <= t for e in grad_err.values()) / len(grad_err)
-             for t in (1e-4, 1e-3, 3e-3, 1e-2)}
-    print(f"[train-parity] one SGD step, Config() in f32, TF32 off, dropout 0, batch "
-          f"{PARITY_BATCH}, encoder BatchNorm biases +{BN_BIAS_SHIFT:g}, card vs CPU: loss terms "
-          f"rel max|Δ| {term_err:.2e} (limit 1e-4); gradients, max|Δ|/max|g| per tensor: "
-          f"worst {', '.join(f'{grad_err[k]:.2e} ({k})' for k in worst)}; of {len(grad_err)} "
-          f"tensors {100 * share[1e-4]:.1f}% within 1e-4, {100 * share[1e-3]:.1f}% within 1e-3, "
-          f"{100 * share[3e-3]:.1f}% within 3e-3, {100 * share[1e-2]:.1f}% within 1e-2 (limits: "
-          f"every tensor {GRAD_TOL[0]:g}, {100 * GRAD_TOL[2]:g}% within {GRAD_TOL[1]:g}); "
-          f"BatchNorm statistics {bn_err:.2e} (limit 1e-5)", flush=True)
-    if card["grads"].keys() != cpu["grads"].keys():
-        raise AssertionError("card and CPU trained different parameters")
-    if not (term_err <= 1e-4 and grad_err[worst[0]] <= GRAD_TOL[0]
-            and share[GRAD_TOL[1]] >= GRAD_TOL[2]
-            and bn_err <= 1e-5):
+        state = create_train_state(run_cfg, model, 10)
+        with branches as taken:
+            terms = make_train_step(run_cfg, assets, 10, dev)(
+                state, {k: v.to(dev) for k, v in batch.items()})
+        return dict(terms={k: float(v) for k, v in terms.items()},
+                    grads={k: p.grad.cpu() for k, p in model.named_parameters()
+                           if p.grad is not None},
+                    bn={k: v.cpu() for k, v in model.state_dict().items()
+                        if k.endswith(("running_mean", "running_var"))}), taken
+
+    def share(gaps):
+        return {t: sum(e <= t for e in gaps.values()) / len(gaps)
+                for t in (1e-4, 1e-3, 3e-3, 1e-2)}
+
+    def line(gaps):
+        worst = sorted(gaps, key=gaps.get, reverse=True)[:3]
+        sh = share(gaps)
+        return (f"worst {', '.join(f'{gaps[k]:.2e} ({k})' for k in worst)}; of {len(gaps)} "
+                f"tensors {100 * sh[1e-4]:.1f}% within 1e-4, {100 * sh[1e-3]:.1f}% within "
+                f"1e-3, {100 * sh[3e-3]:.1f}% within 3e-3, {100 * sh[1e-2]:.1f}% within 1e-2")
+
+    def within(gaps):
+        return max(gaps.values()) <= GRAD_TOL[0] and share(gaps)[GRAD_TOL[1]] >= GRAD_TOL[2]
+
+    rows, ok = [], True
+    for init_seed, batch_seed in TRAIN_PARITY_SEEDS:
+        with torch.no_grad():
+            batch = synthetic_batch(assets, torch.Generator().manual_seed(batch_seed),
+                                    PARITY_BATCH, cfg.model.img_size)
+        card, taken = step(pcfg, DEVICE, init_seed, batch, record_branches())
+        cpu, _ = step(pcfg, "cpu", init_seed, batch, take_branches(taken))
+        if card["grads"].keys() != cpu["grads"].keys():
+            raise AssertionError("card and CPU trained different parameters")
+        term_err = max(abs(card["terms"][k] - v) / max(abs(v), 1e-12)
+                       for k, v in cpu["terms"].items())
+        gaps = gradient_gaps(card["grads"], cpu["grads"])
+        bn_err = max(float((card["bn"][k] - v).abs().max() / v.abs().max())
+                     for k, v in cpu["bn"].items())
+        row = dict(init_seed=init_seed, batch_seed=batch_seed, branches=len(taken),
+                   terms_rel=term_err, grad_rel=gaps, grad_share=share(gaps), bn_rel=bn_err)
+        print(f"[train-parity] one SGD step, Config() in f32, TF32 off, dropout 0, batch "
+              f"{PARITY_BATCH}, init_model seed {init_seed} with the encoder's BatchNorm biases "
+              f"+{BN_BIAS_SHIFT:g}, batch seed {batch_seed}, the CPU "
+              f"on the card's branches ({len(taken)} ReLU and max-pool calls): loss terms rel "
+              f"max|Δ| {term_err:.2e} (limit 1e-4); gradients, max|Δ| over each tensor's "
+              f"scale: {line(gaps)} (limits: every tensor {GRAD_TOL[0]:g}, "
+              f"{100 * GRAD_TOL[2]:g}% within {GRAD_TOL[1]:g}); BatchNorm statistics "
+              f"{bn_err:.2e} (limit 1e-5)", flush=True)
+        ok &= term_err <= 1e-4 and within(gaps) and bn_err <= 1e-5
+        free, _ = step(pcfg, "cpu", init_seed, batch, contextlib.nullcontext())
+        free_gaps = gradient_gaps(card["grads"], free["grads"])
+        print(f"[train-parity] the same, the CPU on its own branches (not held): "
+              f"{line(free_gaps)}", flush=True)
+        row.update(free_grad_rel=max(free_gaps.values()), free_share=share(free_gaps))
+        if not rows:  # a planted fault on the same branches must land outside
+            wrong, _ = step(fault, "cpu", init_seed, batch, take_branches(taken))
+            fault_gaps = gradient_gaps(wrong["grads"], cpu["grads"])
+            print(f"[train-parity] planted fault, the 2-D term's weight 10% off, on the CPU: "
+                  f"{line(fault_gaps)}", flush=True)
+            row.update(fault_grad_rel=max(fault_gaps.values()), fault_share=share(fault_gaps))
+            if within(fault_gaps):
+                raise AssertionError("the gradient limits do not see a planted fault")
+        rows.append(row)
+        del card, cpu, free, taken
+        torch.cuda.empty_cache()
+    if not ok:
         raise AssertionError("card and CPU training steps disagree")
-    return dict(terms_rel=term_err, grad_rel=grad_err, grad_share=share, bn_rel=bn_err)
+    return rows
+
+
+def _contact_split(root: str, assets, n: int, seed: int):
+    """A synthetic packed split whose samples 0-4 have the right hand moved
+    onto the left (ground-truth contact, so CDev is a number there)."""
+    import numpy as np
+
+    from renderih_tpu_torch.data.interhand import PackedInterHand, make_synthetic_packed
+
+    make_synthetic_packed(root, "test", assets, n=n, seed=seed)
+    labels = dict(np.load(f"{root}/test_labels.npz"))
+    rng = np.random.default_rng(seed)
+    labels["v3d_right"][:5] = (labels["v3d_left"][:5] + [0.002, 0.0, 0.0]
+                               + rng.normal(0, 0.001, (5, 778, 3))).astype(np.float32)
+    np.savez(f"{root}/test_labels.npz", **labels)
+    return PackedInterHand.load(root, "test")
+
+
+def eval_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
+    """The eval path on the card (see the module docstring, phase 10)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import eval_interhand
+    from renderih_tpu_torch.data.interhand import make_synthetic_packed
+    from renderih_tpu_torch.eval.evaluator import (
+        eval_mode,
+        evaluate_packed,
+        evaluate_vectors,
+        make_eval_fn,
+    )
+    from renderih_tpu_torch.eval.metrics import two_hand_metrics
+    from renderih_tpu_torch.kernels import _build, conv3x3, fused_attention, sdf
+    from renderih_tpu_torch.models import HandNet, init_model, model_call_kwargs
+    from renderih_tpu_torch.ops.image import normalize_imagenet
+
+    dev = torch.device(DEVICE)
+    counters = (conv3x3.launches, fused_attention.launches, sdf.launches,
+                *conv3x3.routes.values())
+    per_fwd = {"conv3x3": sum(n for _, _, n in conv_shapes(cfg)),  # 13
+               "fused_mha": sum(n for _, _, n in mha_shapes(cfg, assets.left.verts_nums)),
+               "sdf_grid": 0}
+
+    def counted(fn):
+        """fn()'s result, the forwards of a `HandNet` it ran and its kernel
+        launches, which must be per_fwd a forward with every B2 on wgmma."""
+        forwards = [0]
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            lambda mod, args: forwards.__setitem__(0, forwards[0] + isinstance(mod, HandNet)))
+        for counter in counters:
+            counter.reset()
+        try:
+            out = fn()
+        finally:
+            hook.remove()
+        launches = {"conv3x3": conv3x3.launches.value,
+                    "fused_mha": fused_attention.launches.value, "sdf_grid": sdf.launches.value}
+        want = {k: n * forwards[0] for k, n in per_fwd.items()}
+        if forwards[0] == 0 or launches != want or _routes() != {"simt": 0,
+                                                                 "wgmma": want["conv3x3"]}:
+            raise AssertionError(f"{forwards[0]} forwards: launches {launches}, B2 routes "
+                                 f"{_routes()}; expected {want}, all B2 on wgmma")
+        return out, forwards[0], launches
+
+    held = {}
+    for seed, batch in enumerate((EVAL_BATCH, EVAL_CLI_BATCH)):
+        held[batch] = hold_path_kernels(cfg, assets.left.verts_nums, batch, seed=10 + seed)
+        print(f"[eval] the path's kernels at batch {batch} against their plain versions, "
+              f"every shape of a forward: B2 bfloat16 (wgmma) max|Δ| "
+              f"{held[batch]['conv3x3']:.3e} (atol/rtol {CONV_TOL['bfloat16']}), B1 float32 "
+              f"max|Δ| {held[batch]['fused_mha']:.3e} (atol/rtol {MHA_TOL})", flush=True)
+
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        t0 = time.perf_counter()
+        data = make_synthetic_packed(f"{root}/split", "test", assets, n=EVAL_N, seed=0)
+        make_s = time.perf_counter() - t0
+        model = init_model(cfg, assets, torch.Generator().manual_seed(0))
+        model = model.to(dev, memory_format=torch.channels_last)
+        summary, n_fwd, launches = counted(lambda: evaluate_packed(
+            cfg, model, assets, data, batch_size=EVAL_BATCH, device=dev))
+        if not summary["device_cache"] or n_fwd != -(-EVAL_N // EVAL_BATCH):
+            raise AssertionError(f"device cache {summary['device_cache']}, {n_fwd} forwards")
+        metrics = {k: v for k, v in summary.items() if k.endswith("_mm")}
+        if not all(np.isfinite(v) for k, v in metrics.items() if not k.startswith("cdev")):
+            raise AssertionError(f"eval summary not finite: {metrics}")
+        print(f"[eval] evaluate_packed, Config() seed-0 weights, {EVAL_N} synthetic images "
+              f"(written in {make_s:.1f} s) at batch {EVAL_BATCH}: {n_fwd} forwards, launches "
+              f"{launches}, B2 all wgmma; {summary['images_per_sec']:.1f} images/s (batches "
+              f"after the first), device cache upload {summary['cache_upload_s']:.3f} s; "
+              + ", ".join(f"{k} {v:.2f}" for k, v in metrics.items())
+              + f" on {gpu_line}", flush=True)
+
+        # one batch: forward and metrics timed apart; the metrics with TF32
+        # allowed must be bit-equal (no matmul in them)
+        img_u8, v3l, v3r = (torch.from_numpy(data.batch(np.arange(EVAL_BATCH))[k]).to(dev)
+                            for k in ("img_u8", "v3d_left", "v3d_right"))
+        kw = model_call_kwargs(assets, dev)
+        j_reg = {h: getattr(assets, h).j_reg_21.to(dev) for h in ("left", "right")}
+        with eval_mode(model):
+            img = normalize_imagenet(img_u8.float() / 255.0)
+            verts = model(img, **kw).verts3d
+            metric = lambda: two_hand_metrics(verts, {"left": v3l, "right": v3r}, j_reg)
+            fwd_ms = _time_ms(lambda: model(img, **kw), iters=5, warmup=1)
+            met_ms = _time_ms(metric, iters=5, warmup=1)
+            strict = metric()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                loose = metric()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        same = lambda a, b: bool(((a == b) | (a.isnan() & b.isnan())).all())
+        if not all(same(strict[k], loose[k]) for k in strict):
+            raise AssertionError("the eval metrics move with TF32: a matmul is in them")
+        print(f"[eval] one batch of {EVAL_BATCH}: forward {fwd_ms:.2f} ms, metrics "
+              f"{met_ms:.2f} ms ({100 * met_ms / (fwd_ms + met_ms):.1f}% of the batch; CUDA "
+              f"events, 5 calls); metrics bit-equal with TF32 allowed", flush=True)
+        result = dict(held=held, summary=summary, forwards=n_fwd, launches=launches,
+                      make_s=make_s,
+                      forward_ms=fwd_ms, metrics_ms=met_ms,
+                      metrics_share=met_ms / (fwd_ms + met_ms))
+        if profile:
+            fn = make_eval_fn(model, assets, dev)
+            with eval_mode(model):
+                result["profile"] = profile_phase(
+                    f"one eval batch of {EVAL_BATCH} (forward and metrics)",
+                    lambda: float(fn(img_u8, v3l, v3r)["mpjpe_left"].sum()))
+        del model, img_u8, v3l, v3r, img, verts, strict, loose
+        torch.cuda.empty_cache()
+
+        # card against CPU, f32, TF32 off
+        cfg32 = copy.deepcopy(cfg)
+        cfg32.train.precision = "f32"
+        small = _contact_split(f"{root}/parity", assets, EVAL_PARITY_N, seed=3)
+        vec = {}
+        for d in (DEVICE, "cpu"):
+            m = init_model(cfg32, assets, torch.Generator().manual_seed(0))
+            m = m.to(d, memory_format=torch.channels_last)
+            vec[d], _ = evaluate_vectors(cfg32, m, assets, small, batch_size=EVAL_PARITY_BATCH,
+                                         device=d)
+            if d == DEVICE:
+                with eval_mode(m):
+                    out = m(normalize_imagenet(torch.from_numpy(np.array(small.images)).to(d)
+                                               .float() / 255.0), **model_call_kwargs(assets, d))
+                scale = max(float(v.abs().max()) for v in out.verts3d.values())
+            del m
+        errs = {}
+        for k, ref in vec["cpu"].items():
+            got = vec[DEVICE][k]
+            if not np.array_equal(np.isnan(got), np.isnan(ref)):
+                raise AssertionError(f"{k}: NaN pattern card {np.isnan(got)} vs CPU {np.isnan(ref)}")
+            ok = ~np.isnan(ref)
+            errs[k] = float(np.abs(got[ok] - ref[ok]).max(initial=0.0))
+        worst = max(errs, key=errs.get)
+        n_contact = int(np.isfinite(vec["cpu"]["cdev"]).sum())
+        print(f"[eval-parity] f32, TF32 off, {EVAL_PARITY_N} images at batch "
+              f"{EVAL_PARITY_BATCH}: card vs CPU per-sample metrics, worst {worst} "
+              f"{errs[worst]:.3e} m (limit {EVAL_RTOL:g}·max|verts3d| = "
+              f"{EVAL_RTOL * scale:.3e}); cdev NaN pattern equal ({n_contact} samples in "
+              f"contact)", flush=True)
+        if errs[worst] > EVAL_RTOL * scale or n_contact < 5:
+            raise AssertionError("card and CPU eval metrics disagree")
+        result.update(parity_errs=errs, parity_limit=EVAL_RTOL * scale)
+
+        # the CLI once
+        t0 = time.perf_counter()
+        cli, cli_fwd, cli_launches = counted(lambda: eval_interhand.main(
+            ["--synthetic", "--bs", str(EVAL_CLI_BATCH), "--json"]))
+        if cli_fwd != 256 // EVAL_CLI_BATCH or not np.isfinite(cli["mpjpe_mm"]):
+            raise AssertionError(f"eval_interhand: {cli_fwd} forwards, mpjpe {cli['mpjpe_mm']}")
+        print(f"[eval] apps.eval_interhand --synthetic --bs {EVAL_CLI_BATCH} --json: {cli_fwd} "
+              f"forwards, "
+              f"launches {cli_launches}, B2 all wgmma, mpjpe {cli['mpjpe_mm']:.2f} mm, "
+              f"{cli['images_per_sec']:.1f} images/s, {time.perf_counter() - t0:.1f} s in all",
+              flush=True)
+        result.update(cli=cli, cli_launches=cli_launches)
+    torch.cuda.empty_cache()
+    return result
 
 
 def _summary(rows: list, launches: int) -> dict:
@@ -1207,6 +1512,7 @@ def run(json_path: str | None, profile: bool) -> int:
     bwd_rows = conv_backward_phase(cfg)
     train = train_phase(cfg, assets, gpu_line, profile)
     train_parity = train_parity_phase(cfg, assets)
+    evaluation = eval_phase(cfg, assets, gpu_line, profile)
     per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
     b3_ms = synth["per_sample"] * on_path[0]["ms"]
     print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
@@ -1238,7 +1544,8 @@ def run(json_path: str | None, profile: bool) -> int:
                        "main_path": path, "parity": errs, "synth_path": synth,
                        "refine_parity": refine, "conv_backward": bwd_rows,
                        "train_path": train, "train_parity": train_parity,
-                       "kernels": kernels}, f, indent=1)
+                       "eval_path": evaluation, "kernels": kernels}, f, indent=1,
+                      default=float)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1252,8 +1559,8 @@ def main() -> int:
     parser.add_argument("--json", help="also write every measurement to this file")
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one flagship "
-                             "predict at the largest bucket, one refined sample and "
-                             "one training step (torch.profiler)")
+                             "predict at the largest bucket, one refined sample, "
+                             "one training step and one eval batch (torch.profiler)")
     args = parser.parse_args()
     try:
         return run(args.json, args.profile)

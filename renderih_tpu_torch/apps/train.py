@@ -14,13 +14,20 @@ streamed from the host memmap. Checkpoints (full state) go to
 SIGTERM, `crash` when a step fails, `final` at the end; `--resume auto`
 picks the newest and continues with the batches and random draws the
 uninterrupted run would have had (each step's generator is seeded from
-`train.seed` and the step). In-training eval (`evaluate_packed`) is not
-ported yet: a run that would reach an eval epoch raises at start.
+`train.seed` and the step; the loop resumes at the steps taken, skipped
+ones included). Every `eval_every` epochs, after the epoch's checkpoint,
+the held-out split is evaluated (`evaluate_packed`, at the train batch
+size) and logged under `eval/` in `metrics.jsonl`; with `ema_decay > 0`
+also the EMA parameters, under `eval_ema/`; with `vis_every_eval`,
+prediction and ground-truth overlays of the first samples are written
+under `vis/`. Eval changes nothing of training and its time stays out of
+the training images/s.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -35,7 +42,11 @@ from renderih_tpu_torch.assets import load_assets
 from renderih_tpu_torch.config import load_config
 from renderih_tpu_torch.data.interhand import PackedInterHand, make_synthetic_packed
 from renderih_tpu_torch.data.pipeline import DataProvider
-from renderih_tpu_torch.models import init_model
+from renderih_tpu_torch.eval.evaluator import eval_mode, evaluate_packed
+from renderih_tpu_torch.losses.graph_loss import fit_orthographic_cam
+from renderih_tpu_torch.models import init_model, model_call_kwargs
+from renderih_tpu_torch.ops.image import normalize_imagenet
+from renderih_tpu_torch.render.renderer import TwoHandRenderer
 from renderih_tpu_torch.serve import resolve_device
 from renderih_tpu_torch.train.resilience import run_step_guarded
 from renderih_tpu_torch.train.state import (
@@ -78,12 +89,85 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def eval_epochs(step0: int, total_steps: int, steps_per_epoch: int,
-                eval_every: int) -> list:
-    """The epochs at which steps step0..total_steps-1 would run eval."""
-    first = step0 // steps_per_epoch + 1
-    last = total_steps // steps_per_epoch
-    return [e for e in range(first, last + 1) if e % eval_every == 0]
+@contextlib.contextmanager
+def _params_swapped(model: torch.nn.Module, params: dict | None):
+    """`model` with `params` (name -> tensor) in place of its parameters,
+    restored bit for bit after; None leaves it as it is."""
+    if params is None:
+        yield model
+        return
+    named = dict(model.named_parameters())
+    mine = [named[k] for k in params]
+    with torch.no_grad():
+        saved = [p.clone() for p in mine]
+        torch._foreach_copy_(mine, list(params.values()))
+    try:
+        yield model
+    finally:
+        with torch.no_grad():
+            torch._foreach_copy_(mine, saved)
+
+
+def _write_eval_overlays(writer, step: int, cfg, model, assets, eval_dataset, device,
+                         prev: dict, n: int = 2) -> dict:
+    """Prediction and ground-truth mesh overlays of the first `n` held-out
+    samples, side by side, as PNGs (`MetricsWriter.write_image`; the
+    reference's render-to-TensorBoard scaffolding, `utils/tb_utils.py:48-111`):
+    the prediction rendered with its own orthographic camera, the ground
+    truth with a camera fit to its 2-D labels. `prev` (one per run) holds
+    the last overlays: the mean absolute pixel change against them is
+    logged as `eval/overlay_{k}_delta`, so a model whose prediction stalls
+    shows as 0. Returns those deltas."""
+    n = min(n, len(eval_dataset))
+    b = {k: torch.from_numpy(v).to(device)
+         for k, v in eval_dataset.batch(np.arange(n)).items()}
+    img01 = b["img_u8"].float() / 255.0
+    renderer = TwoHandRenderer(assets, img_size=cfg.model.img_size, device=device)
+    with eval_mode(model):
+        out = model(normalize_imagenet(img01), **model_call_kwargs(assets, device))
+        pred = renderer.overlay(img01, *renderer.render_rgb_orth(
+            out.scale, out.trans2d, out.verts3d["left"], out.verts3d["right"]))
+        cams = {h: fit_orthographic_cam(b[f"v3d_{h}"], b[f"v2d_{h}"], float(cfg.model.img_size))
+                for h in ("left", "right")}
+        gt = renderer.overlay(img01, *renderer.render_rgb_orth(
+            {h: c[0] for h, c in cams.items()}, {h: c[1] for h, c in cams.items()},
+            b["v3d_left"], b["v3d_right"]))
+    sides = torch.cat([pred, gt], dim=2).cpu().numpy()  # (n, H, 2W, 3)
+    deltas = {}
+    for k, side in enumerate(sides):
+        writer.write_image(step, f"eval/overlay_{k}", side)
+        side = side.astype(np.float32)
+        if k in prev:
+            deltas[f"overlay_{k}_delta"] = float(np.abs(side - prev[k]).mean())
+        prev[k] = side
+    if deltas:
+        writer.write(step, deltas, prefix="eval/")
+    return deltas
+
+
+def _evaluate(writer, step: int, epoch: int, cfg, state, assets, eval_dataset,
+              batch_size: int, device, overlays: dict) -> list:
+    """The in-training eval of one epoch: the held-out split on the
+    parameters (`eval/`, with the overlays) and, with an EMA, on the EMA
+    parameters (`eval_ema/`) swapped in and restored. Returns
+    [{"step", "prefix", "summary", "seconds"}]."""
+    done = []
+    runs = [("eval/", None)] + ([("eval_ema/", state.ema)] if state.ema is not None else [])
+    for prefix, params in runs:
+        t0 = time.perf_counter()
+        with _params_swapped(state.model, params):
+            summary = evaluate_packed(cfg, state.model, assets, eval_dataset,
+                                      batch_size=batch_size, device=device)
+        seconds = time.perf_counter() - t0
+        log.info("eval epoch %d%s: mpjpe %.2f mm mpvpe %.2f mm pa %.2f mm (%.1f s)", epoch,
+                 " (EMA)" if params is not None else "", summary["mpjpe_mm"],
+                 summary["mpvpe_mm"], summary["pa_mpjpe_mm"], seconds)
+        writer.write(step, summary, prefix=prefix)
+        if params is None and cfg.train.vis_every_eval:
+            _write_eval_overlays(writer, step, cfg, state.model, assets, eval_dataset,
+                                 device, overlays)
+        done.append(dict(step=step, prefix=prefix, summary=summary, seconds=seconds))
+    return done
 
 
 def _datasets(args, cfg, assets, device):
@@ -105,8 +189,9 @@ def _datasets(args, cfg, assets, device):
 
 
 def main(argv=None) -> dict:
-    """Train; returns {"final_step", "checkpoint", "step_seconds",
-    "images_per_s", "logged": [(step, terms)]}."""
+    """Train; returns {"final_step" (updates applied), "steps_taken",
+    "checkpoint", "step_seconds", "images_per_s", "logged": [(step, terms)],
+    "evals": [{"step", "prefix", "summary", "seconds"}]}."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     cfg = load_config(args.cfg)
@@ -134,15 +219,11 @@ def main(argv=None) -> dict:
         log.info("resume auto: %s", resume or "no checkpoint found")
     if resume:
         restore_checkpoint(resume, state)
-        log.info("resumed from %s at step %d", resume, state.step)
-    step0 = state.step
-    if eval_dataset is not None:
-        reached = eval_epochs(step0, total_steps, steps_per_epoch, cfg.train.eval_every)
-        if reached:
-            raise NotImplementedError(
-                f"this run reaches eval epochs {reached[:3]}..., and in-training eval "
-                "(evaluate_packed) is not ported yet (ROADMAP.md A.5): lower --steps "
-                "or --epochs, or raise train.eval_every")
+        log.info("resumed from %s at step %d (%d updates applied)", resume,
+                 state.steps_taken, state.step)
+    if eval_dataset is not None and cfg.train.eval_every < 1:
+        raise ValueError(f"train.eval_every must be >= 1, got {cfg.train.eval_every}")
+    step0 = state.steps_taken  # skipped steps drew their batch too
     provider.sampler.skip(step0)
 
     # Device-resident data cache: upload the split once, gather on the device.
@@ -159,7 +240,8 @@ def main(argv=None) -> dict:
     preempted = []
     prev_handler = signal.signal(signal.SIGTERM, lambda *_: preempted.append(True))
     ckpt_dir = cfg.train.checkpoint_dir
-    step_seconds, logged = [], []
+    step_seconds, logged, evals = [], [], []
+    overlays: dict = {}  # this run's last eval overlays
     try:
         with MetricsWriter(ckpt_dir) as writer:
             t_prev = time.perf_counter()
@@ -199,29 +281,35 @@ def main(argv=None) -> dict:
                     save_checkpoint(path, state)
                     log.info("SIGTERM: saved preemption checkpoint %s at step %d",
                              path, state.step)
-                    return _result(state, path, step_seconds, batch_size, logged)
+                    return _result(state, path, step_seconds, batch_size, logged, evals)
                 epoch = (i + 1) // steps_per_epoch
                 if (i + 1) % steps_per_epoch == 0 and epoch % cfg.train.save_gap == 0:
                     path = os.path.abspath(os.path.join(ckpt_dir, f"epoch_{epoch}"))
                     save_checkpoint(path, state)
                     log.info("saved checkpoint %s", path)
+                if (eval_dataset is not None and (i + 1) % steps_per_epoch == 0
+                        and epoch % cfg.train.eval_every == 0):
+                    evals += _evaluate(writer, i + 1, epoch, cfg, state, assets, eval_dataset,
+                                       batch_size, device, overlays)
+                    t_prev = time.perf_counter()  # the next step's time leaves eval out
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
 
     final = os.path.abspath(os.path.join(ckpt_dir, "final"))
     save_checkpoint(final, state)
     log.info("done; final checkpoint at %s", final)
-    result = _result(state, final, step_seconds, batch_size, logged)
+    result = _result(state, final, step_seconds, batch_size, logged, evals)
     print(json.dumps({"final_step": result["final_step"],
                       "images_per_s": result["images_per_s"]}), flush=True)
     return result
 
 
-def _result(state, path, step_seconds, batch_size, logged) -> dict:
+def _result(state, path, step_seconds, batch_size, logged, evals) -> dict:
     steady = step_seconds[WARMUP_STEPS:] or step_seconds
-    return {"final_step": state.step, "checkpoint": path, "step_seconds": step_seconds,
+    return {"final_step": state.step, "steps_taken": state.steps_taken, "checkpoint": path,
+            "step_seconds": step_seconds,
             "images_per_s": batch_size / statistics.median(steady) if steady else None,
-            "logged": logged}
+            "logged": logged, "evals": evals}
 
 
 if __name__ == "__main__":

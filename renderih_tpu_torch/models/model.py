@@ -108,18 +108,26 @@ def model_call_kwargs(assets: Assets, device: torch.device | str = "cpu") -> dic
                 pe_right=assets.right.pe.to(device))
 
 
+# std of a unit normal cut at ±2: flax's `variance_scaling` divides by it
+# so that the cut draw keeps the asked-for variance
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def _init_params(model: HandNet, cfg: Config, assets: Assets,
                  generator: torch.Generator) -> None:
     """Draw every parameter from `generator` with the JAX package's init
-    rules (flax defaults): conv and linear weights normal with variance
-    1/fan_in, biases 0, norms at identity, BN statistics (0, 1), position
-    embeddings normal(0, 0.02), the upsample from the assets' initializer
-    and, under `zero_init_heads`, zero coord/params head weights."""
+    rules (flax defaults): conv and linear weights flax's `lecun_normal`
+    (a normal cut at ±2σ, σ rescaled so the variance is 1/fan_in), biases
+    0, norms at identity, BN statistics (0, 1), position embeddings
+    normal(0, 0.02), the upsample from the assets' initializer and, under
+    `zero_init_heads`, zero coord/params head weights."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
-            mod.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+            std = fan_in ** -0.5 / _TRUNC_NORMAL_STD
+            nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):

@@ -5,8 +5,8 @@ RGB from per-hand orthographic cameras (`render_rgb_orth`) and binary
 masks (`render_mask`), shaded per vertex: Lambert or Blinn-Phong under
 one directional light, with optional point-based ambient occlusion and a
 directional soft shadow between the hands. Everything is batched over
-scenes; the perspective, densepose and overlay paths of the JAX renderer
-wait for the demo slice.
+scenes; `overlay` blends a render over an image. The perspective and
+densepose paths of the JAX renderer wait for the demo slice.
 """
 
 from __future__ import annotations
@@ -157,3 +157,11 @@ class TwoHandRenderer:
     def render_mask(self, scale, trans2d, verts_left, verts_right):
         _, mask = self.render_rgb_orth(scale, trans2d, verts_left, verts_right)
         return mask
+
+    @staticmethod
+    def overlay(img01: torch.Tensor, rgb: torch.Tensor, mask: torch.Tensor,
+                alpha: float = 0.9) -> torch.Tensor:
+        """Alpha-blend a render (B, H, W, 3) with its mask (B, H, W) over an
+        image in [0, 1] (`core/test_utils.py:81-99`)."""
+        m = mask[..., None] * alpha
+        return img01 * (1 - m) + rgb * m

@@ -3,8 +3,9 @@
 
 The state is the full training state, as in the JAX package: the model
 (parameters and BatchNorm statistics), the optimizer (moments), the step
-(updates applied, which the learning-rate schedule reads) and the EMA of
-the parameters. A checkpoint holds all of it, so a resumed run continues
+(updates applied, which the learning-rate schedule reads), the steps
+taken (applied or skipped by the NaN guard: where a resumed loop, its
+sampler and its per-step seeds continue) and the EMA of the parameters. A checkpoint holds all of it, so a resumed run continues
 where it stopped (the reference saves only the weights,
 `core/lijun_trainer.py:343-355`).
 
@@ -88,6 +89,7 @@ class TrainState:
     schedule: Schedule
     step: int = 0            # updates applied
     ema: dict | None = None  # name -> EMA of that parameter
+    steps_taken: int = 0     # train steps run, applied or skipped (>= step)
 
 
 def create_train_state(cfg: Config, model: nn.Module, steps_per_epoch: int) -> TrainState:
@@ -105,7 +107,8 @@ def save_checkpoint(path: str, state: TrainState) -> None:
     """The full state into the directory `path` (written to a temporary
     file, then renamed: a crash mid-write leaves the old checkpoint)."""
     os.makedirs(path, exist_ok=True)
-    blob = {"step": state.step, "model": state.model.state_dict(),
+    blob = {"step": state.step, "steps_taken": state.steps_taken,
+            "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(), "ema": state.ema}
     tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
     torch.save(blob, tmp)
@@ -118,12 +121,15 @@ def _load(path: str, device) -> dict:
 
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
-    """Load the checkpoint at `path` into `state` (in place) and return it."""
+    """Load the checkpoint at `path` into `state` (in place) and return it.
+    A checkpoint written before `steps_taken` was saved loads with steps
+    taken = updates applied."""
     device = next(state.model.parameters()).device
     blob = _load(path, device)
     state.model.load_state_dict(blob["model"])
     state.optimizer.load_state_dict(blob["optimizer"])
     state.step = int(blob["step"])
+    state.steps_taken = int(blob.get("steps_taken", blob["step"]))
     if (blob["ema"] is None) != (state.ema is None):
         raise ValueError(f"{path}: EMA {'present' if blob['ema'] is not None else 'absent'}"
                          " in the checkpoint but not so in the config")

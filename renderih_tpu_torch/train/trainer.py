@@ -15,7 +15,8 @@ backward, the optimizer update. As in the JAX package:
     snapshots them first and restores them on a skip (JAX drops the
     mutated copy instead). The check is one host sync a step;
   * the learning rate comes from the schedule at the number of updates
-    applied; the EMA follows applied updates only. A failure inside the
+    applied; the EMA follows applied updates only; `state.steps_taken`
+    counts every step, applied or skipped. A failure inside the
     update raises `UpdateFailed`, which the step guard does not retry.
 `make_augmented_step` puts the on-device gather's batch through
 `device_augment` and the step, drawing both from one generator seeded per
@@ -133,6 +134,7 @@ def make_train_step(cfg: Config, assets: Assets, steps_per_epoch: int,
                 raise UpdateFailed("the optimizer or EMA update failed") from err
         else:
             torch._foreach_copy_(bn, bn_before)
+        state.steps_taken += 1
         return terms
 
     return step

@@ -9,7 +9,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from renderih_tpu_torch.apps import eval_interhand
 from renderih_tpu_torch.config import Config
+from renderih_tpu_torch.eval import evaluator
 from renderih_tpu_torch.serve import InferenceEngine, resolve_device
 from renderih_tpu_torch.tools import synth_gen
 
@@ -44,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, renderih_tpu_torch.serve, renderih_tpu_torch.utils.weights, "
             "renderih_tpu_torch.tools.synth_gen, renderih_tpu_torch.optimize, "
             "renderih_tpu_torch.render.renderer, renderih_tpu_torch.render.backgrounds, "
-            "renderih_tpu_torch.apps.train, renderih_tpu_torch.train.trainer; "
+            "renderih_tpu_torch.apps.train, renderih_tpu_torch.train.trainer, "
+            "renderih_tpu_torch.eval.evaluator, renderih_tpu_torch.apps.eval_interhand, "
+            "renderih_tpu_torch.apps.eval_singlehand, renderih_tpu_torch.apps.eval_tzionas; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -70,3 +74,17 @@ def test_synth_gen_without_device_runs_on_the_card_or_raises(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             synth_gen.main(["--out", str(tmp_path / "out"), "--n", "1"])
         assert not (tmp_path / "out").exists()
+
+
+def test_eval_without_device_runs_on_the_card_or_raises(tmp_path, monkeypatch):
+    """`evaluate_packed` (device=None) and `apps.eval_interhand` (no
+    --device) run on the card; without one they raise before any work."""
+    if torch.cuda.is_available():
+        assert eval_interhand.build_parser().parse_args([]).device == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluator.evaluate_packed(Config(), torch.nn.Linear(1, 1), None, [0])
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_interhand.main(["--synthetic"])
+    assert not list(tmp_path.iterdir())

@@ -66,7 +66,7 @@ from renderih_tpu.train.state import create_train_state as jax_create_train_stat
 from renderih_tpu.train.trainer import make_train_step as jax_make_train_step
 from renderih_tpu_torch.assets import make_synthetic_assets
 from renderih_tpu_torch.config import load_config
-from renderih_tpu_torch.models import build_model, model_call_kwargs
+from renderih_tpu_torch.models import build_model, init_model, model_call_kwargs
 from renderih_tpu_torch.train.state import create_train_state
 from renderih_tpu_torch.train.trainer import make_train_step
 from renderih_tpu_torch.utils.weights import state_dict_from_jax
@@ -395,3 +395,30 @@ def test_grad_accum_2_matches_jax(init):
     js0, js1 = _jax_again(init, over, jstep, init["shifted"], init["grad_batch"][2])
     shifted, _ = _port_step(init, over, init["shifted"], init["grad_batch"][2])
     _check_grads(shifted, js0, js1, lr=1e3)
+
+
+def test_init_draws_flax_lecun_normal(init):
+    """Conv and linear weights as flax's `lecun_normal`: none beyond the
+    truncation bound 2/0.8796/sqrt(fan_in) (the untruncated normal put 2.3%
+    of the weights there), each tensor's std within 5% of JAX's
+    `init_model` at the same config, or 4/sqrt(n) for a tensor of n < 6400
+    weights (the standard error of a std ratio of two independent draws is
+    about 1/sqrt(n))."""
+    model = init_model(load_config(overrides=_cfg()), init["assets"],
+                       torch.Generator().manual_seed(0))
+    jax_sd = state_dict_from_jax(init["params"], init["stats"])
+    checked = 0
+    for name, mod in model.named_modules():
+        if (not isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d))
+                or name == "decoder.unsample_layer"):  # the assets' upsample
+            continue
+        w, ref = mod.weight.detach(), jax_sd[f"{name}.weight"]
+        bound = 2.0 / 0.87962566103423978 / w[0].numel() ** 0.5 * (1 + 1e-6)
+        assert w.abs().max() <= bound and ref.abs().max() <= bound, name
+        if ref.std() == 0:  # a zero-initialised head
+            assert not w.any(), name
+            continue
+        ratio = float(w.std() / ref.std())
+        assert abs(ratio - 1) <= max(0.05, 4 / w.numel() ** 0.5), (name, ratio)
+        checked += 1
+    assert checked > 50

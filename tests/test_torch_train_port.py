@@ -3,6 +3,7 @@ guard, EMA, checkpoints and resume, the checkpoint naming, the step
 guard, seeded dropout, serving a checkpoint, and the training app end to
 end (`python -m renderih_tpu_torch.apps.train --synthetic --device cpu`)."""
 
+import argparse
 import json
 import os
 import time
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from renderih_tpu_torch.apps import train as train_app
+from renderih_tpu_torch.apps.weights import load_eval_weights
 from renderih_tpu_torch.assets import make_synthetic_assets
 from renderih_tpu_torch.config import dump_config, load_config
 from renderih_tpu_torch.data.pipeline import device_augment
@@ -19,6 +21,8 @@ from renderih_tpu_torch.data.synthetic import synthetic_batch
 from renderih_tpu_torch.kernels import conv3x3
 from renderih_tpu_torch.models import init_model
 from renderih_tpu_torch.ops.dropout import dropout, dropout_generator
+from renderih_tpu_torch.ops.projection import orthographic_project
+from renderih_tpu_torch.render.renderer import TwoHandRenderer
 from renderih_tpu_torch.serve import InferenceEngine
 from renderih_tpu_torch.train import resilience
 from renderih_tpu_torch.train.state import (
@@ -27,10 +31,11 @@ from renderih_tpu_torch.train.state import (
     restore_checkpoint,
     save_checkpoint,
 )
-from renderih_tpu_torch.data.interhand import make_synthetic_packed
+from renderih_tpu_torch.data.interhand import PackedInterHand, make_synthetic_packed
+from renderih_tpu_torch.eval.evaluator import evaluate_packed
 from renderih_tpu_torch.models import model_call_kwargs
 from renderih_tpu_torch.train.trainer import make_eval_step, make_train_step
-from renderih_tpu_torch.utils.metrics_writer import MetricsWriter
+from renderih_tpu_torch.utils.metrics_writer import MetricsWriter, png_bytes
 
 SMALL = {
     "model": {"encoder": "resnet18", "img_size": 128, "grid_size": 4,
@@ -266,6 +271,39 @@ def test_metrics_writer_writes_json_lines(tmp_path):
     assert rec["step"] == 3 and rec["train/loss"] == 1.5 and "train/name" not in rec
 
 
+def _read_png(data: bytes) -> np.ndarray:
+    """The pixels of an 8-bit RGB PNG with filter 0 rows (what png_bytes
+    writes), decoded with the standard library."""
+    import struct
+    import zlib
+
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        assert struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] == zlib.crc32(tag + body)
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    w, h, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (depth, colour) == (8, 2) and b"IEND" in chunks
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 3 * w)
+    assert not rows[:, 0].any()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def test_metrics_writer_writes_png_images(tmp_path):
+    img = np.random.default_rng(0).random((5, 7, 3)).astype(np.float32)
+    with MetricsWriter(str(tmp_path)) as w:
+        path = w.write_image(12, "eval/overlay_0", img)
+    assert path == str(tmp_path / "vis" / "eval_overlay_0_step0000012.png")
+    with open(path, "rb") as f:
+        np.testing.assert_array_equal(_read_png(f.read()),
+                                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    with pytest.raises(ValueError, match="uint8"):
+        png_bytes(np.zeros((2, 2, 4), np.uint8))
+
+
 @pytest.fixture(scope="module")
 def app_runs(tmp_path_factory):
     """The app on the CPU: 3 steps straight; 2 steps, then `--resume auto`
@@ -328,14 +366,13 @@ def test_engine_serves_a_training_checkpoint(app_runs, assets):
 
 
 def test_app_refuses_a_run_that_reaches_eval(tmp_path):
-    cfg = _cfg(checkpoint_dir=str(tmp_path), eval_every=1)
+    """A run that reaches eval runs it (see the in-training eval tests);
+    the app refuses only an eval period below one epoch."""
+    cfg = _cfg(checkpoint_dir=str(tmp_path), eval_every=0)
     dump_config(cfg, str(tmp_path / "c.yaml"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="eval_every"):
         train_app.main(["--cfg", str(tmp_path / "c.yaml"), "--synthetic", "--synth_n", "8",
                         "--steps", "4", "--device", "cpu"])
-    assert train_app.eval_epochs(0, 40, 4, 10) == [10]
-    assert train_app.eval_epochs(40, 80, 4, 10) == [20]
-    assert train_app.eval_epochs(0, 39, 4, 10) == []
 
 
 def test_app_rejects_a_train_seed_in_the_held_out_space(tmp_path):
@@ -353,3 +390,170 @@ def test_app_without_device_runs_on_the_card_or_raises(tmp_path):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_app.main(["--synthetic", "--steps", "1"])
+
+
+def _app(root, name: str, args: list, **train) -> dict:
+    cfg = _cfg(checkpoint_dir=str(root / name), **train)
+    dump_config(cfg, str(root / f"{name}.yaml"))
+    return train_app.main(["--cfg", str(root / f"{name}.yaml"), "--synthetic", "--device",
+                           "cpu", *args])
+
+
+def test_resume_after_a_skipped_step_equals_the_uninterrupted_run(tmp_path, monkeypatch):
+    """A non-finite batch at step 2 of epoch 1, skipped by the NaN guard;
+    the run cut at the epoch_1 checkpoint (step 4, 3 updates applied) and
+    resumed from it to step 6 equals the uninterrupted 6 steps: the
+    batches drawn after the cut, the terms, the parameters, the step
+    counters."""
+    drawn, run = {}, [None]
+    augmented = train_app.make_augmented_step
+
+    def planted(cfg, step_fn, seed, device):
+        fn = augmented(cfg, step_fn, seed, device)
+
+        def step(state, raw, i):
+            drawn.setdefault(run[0], []).append((i, raw["v3d_left"].clone()))
+            if i == 1:
+                raw = dict(raw, v3d_left=raw["v3d_left"] * float("nan"))
+            return fn(state, raw, i)
+
+        return step
+
+    monkeypatch.setattr(train_app, "make_augmented_step", planted)
+    args = ["--synth_n", "8", "--steps", "6"]
+    run[0] = "straight"
+    straight = _app(tmp_path, "straight", args, save_gap=1, seed=4)
+    run[0] = "cut"
+    cut = _app(tmp_path, "cut", ["--synth_n", "8", "--steps", "4"], save_gap=1, seed=4)
+    assert dict(straight["logged"])[2]["skipped_nonfinite"] == 1.0
+    assert (cut["final_step"], cut["steps_taken"]) == (3, 4)
+    run[0] = "resumed"
+    resumed = _app(tmp_path, "cut", [*args, "--resume", str(tmp_path / "cut" / "epoch_1")],
+                   save_gap=1, seed=4)
+    assert [i for i, _ in drawn["resumed"]] == [4, 5]
+    for (i, got), (j, want) in zip(drawn["resumed"], drawn["straight"][4:]):
+        assert i == j
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert resumed["logged"] == straight["logged"][4:]
+    assert (resumed["final_step"], resumed["steps_taken"]) == (5, 6)
+    assert (straight["final_step"], straight["steps_taken"]) == (5, 6)
+    a, b = (torch.load(os.path.join(r["checkpoint"], "state.pt"), weights_only=True)
+            for r in (straight, resumed))
+    assert (a["step"], a["steps_taken"]) == (b["step"], b["steps_taken"]) == (5, 6)
+    for k, v in a["model"].items():
+        torch.testing.assert_close(b["model"][k], v, rtol=0, atol=0, msg=k)
+
+
+def test_a_checkpoint_without_steps_taken_resumes_at_its_step(assets, tmp_path):
+    state = _state(_cfg(), assets)
+    state.step, state.steps_taken = 3, 5
+    save_checkpoint(str(tmp_path / "new"), state)
+    blob = torch.load(tmp_path / "new" / "state.pt", weights_only=True)
+    del blob["steps_taken"]
+    os.makedirs(tmp_path / "old")
+    torch.save(blob, tmp_path / "old" / "state.pt")
+    for name, taken in (("new", 5), ("old", 3)):
+        other = restore_checkpoint(str(tmp_path / name), _state(_cfg(), assets, seed=1))
+        assert (other.step, other.steps_taken) == (3, taken)
+
+
+@pytest.fixture(scope="module")
+def eval_runs(tmp_path_factory):
+    """The app on the CPU with the held-out split evaluated every epoch
+    (EMA on), at 256² (eval feeds the packed images unresized): 2 epochs
+    of 2 steps with eval, the same without eval, then one more epoch with
+    eval in a new run of the same process."""
+    root = tmp_path_factory.mktemp("eval")
+    model = {**SMALL["model"], "img_size": 256}
+
+    def run(name: str, epochs: int, **train) -> dict:
+        cfg = load_config(overrides={**SMALL, "model": model, "train": {
+            **SMALL["train"], "checkpoint_dir": str(root / name), "seed": 2, "save_gap": 1,
+            **train}})
+        dump_config(cfg, str(root / f"{name}.yaml"))
+        return train_app.main(["--cfg", str(root / f"{name}.yaml"), "--synthetic", "--synth_n",
+                               "4", "--synth_eval_n", "3", "--epochs", str(epochs),
+                               "--device", "cpu"])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TwoHandRenderer, "render_rgb_orth", _splat_render)
+        runs = {"eval": run("eval", 2, eval_every=1), "plain": run("plain", 2, eval_every=100),
+                "again": run("again", 1, eval_every=1)}
+    return root, runs
+
+
+def _splat_render(self, scale, trans2d, verts_left, verts_right):
+    """A stand-in for `TwoHandRenderer.render_rgb_orth` in the app tests
+    (the rasteriser tests every pixel against every face, ~15 s an image
+    at 256² on one CPU thread; tests/test_torch_render.py holds it against
+    JAX): each projected vertex lights its pixel in its hand's colour."""
+    n, b = self.img_size, verts_left.shape[0]
+    rgb, mask = torch.zeros(b, n * n, 3), torch.zeros(b, n * n)
+    for colour, hand, verts in ((0.3, "left", verts_left), (0.8, "right", verts_right)):
+        uv = orthographic_project(scale[hand], trans2d[hand], verts, n).round().long()
+        idx = uv.clamp(0, n - 1) @ torch.tensor([1, n])
+        mask.scatter_(1, idx, 1.0)
+        rgb[torch.arange(b)[:, None], idx] = colour
+    return rgb.reshape(b, n, n, 3), mask.reshape(b, n, n)
+
+
+def _records(path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def test_in_training_eval_logs_eval_and_ema_summaries(eval_runs):
+    root, runs = eval_runs
+    evals = runs["eval"]["evals"]
+    assert [(e["step"], e["prefix"]) for e in evals] == [
+        (2, "eval/"), (2, "eval_ema/"), (4, "eval/"), (4, "eval_ema/")]
+    keys = {k for rec in _records(root / "eval" / "metrics.jsonl") for k in rec}
+    for prefix in ("eval/", "eval_ema/"):
+        assert {f"{prefix}{k}" for k in ("mpjpe_mm", "pa_mpjpe_mm", "cdev_mm", "mrrpe_mm",
+                                         "double_mpjpe_mm", "num_samples")} <= keys
+    assert evals[0]["summary"]["num_samples"] == 3 and not runs["plain"]["evals"]
+
+
+def test_in_training_eval_equals_an_eval_of_its_checkpoint(eval_runs):
+    """The epoch-1 summaries equal `evaluate_packed` on the epoch_1
+    checkpoint, its parameters and (`--ema`) its EMA parameters."""
+    root, runs = eval_runs
+    cfg = load_config(str(root / "eval.yaml"))
+    assets = make_synthetic_assets(0)
+    held_out = PackedInterHand.load(str(root / "eval" / "_synth_data"), "test")
+    for ema, run in zip((False, True), runs["eval"]["evals"][:2]):
+        model = init_model(cfg, assets)
+        load_eval_weights(model, argparse.Namespace(ckpt=str(root / "eval" / "epoch_1"),
+                                                    ema=ema, torch_ckpt=None))
+        model = model.to(memory_format=torch.channels_last)
+        want = evaluate_packed(cfg, model, assets, held_out, batch_size=2, device="cpu")
+        for k, v in want.items():
+            if k not in ("images_per_sec", "cache_upload_s"):
+                assert run["summary"][k] == v or (np.isnan(v) and np.isnan(run["summary"][k])), k
+
+
+def test_in_training_eval_leaves_training_unchanged(eval_runs):
+    _, runs = eval_runs
+    assert runs["eval"]["logged"] == runs["plain"]["logged"]
+    a, b = (torch.load(os.path.join(runs[n]["checkpoint"], "state.pt"), weights_only=True)
+            for n in ("eval", "plain"))
+    assert (a["step"], a["steps_taken"]) == (b["step"], b["steps_taken"]) == (4, 4)
+    for k, v in a["model"].items():
+        torch.testing.assert_close(b["model"][k], v, rtol=0, atol=0, msg=k)
+    for k, v in a["ema"].items():
+        torch.testing.assert_close(b["ema"][k], v, rtol=0, atol=0, msg=k)
+
+
+def test_in_training_eval_writes_overlays_with_a_cache_per_run(eval_runs):
+    root, _ = eval_runs
+    for step in (2, 4):
+        for k in (0, 1):
+            with open(root / "eval" / "vis" / f"eval_overlay_{k}_step{step:07d}.png", "rb") as f:
+                img = _read_png(f.read())
+            assert img.shape == (256, 512, 3) and img.std() > 0
+    deltas = {rec["step"]: rec for rec in _records(root / "eval" / "metrics.jsonl")
+              if "eval/overlay_0_delta" in rec}
+    assert list(deltas) == [4] and deltas[4]["eval/overlay_0_delta"] > 0
+    # the next run in this process starts with no overlays of its own
+    again = _records(root / "again" / "metrics.jsonl")
+    assert any("eval/mpjpe_mm" in rec for rec in again)
+    assert not any("eval/overlay_0_delta" in rec for rec in again)
