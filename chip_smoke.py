@@ -124,10 +124,68 @@ line:
    1e-4·max|verts3d| (the CPU tests' bar against JAX) with the same NaN
    pattern. Then `apps.eval_interhand.main(["--synthetic", "--bs", "64",
    "--json"])` once (256 images, 4 forwards, their launches counted).
-11. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
-   batch 256 in the flagship's dtypes, B2 per training step at batch 64,
-   B3 per refined sample), and as the last line
-   `{"ok": true, "device": {...}}`.
+11. From-scratch recipe training: `apps.train --cfg configs/convergence_r5d.yaml
+   --synthetic --synth_render --synth_n 256 --steps 20` on the card
+   (`Config()`'s ResNet-50, bf16 encoder, f32 decoder, with the recipe's
+   aux heads, zero-init heads, normal from epoch 16, camera 10, theta
+   ±30, batch 128; 2 steps an epoch, so its in-training eval runs at steps
+   8 and 16; checkpoints under build/). First B2 forward and dx in bf16
+   at every shape of batch 128 as phase 7, and B2 and B1 as phase 10 at
+   that batch. Held: exactly phase 8's 26 B2 launches a step, all on
+   `wgmma` (the heads' convolutions are stock ones), plus 13 B2 and 24 B1
+   for each eval forward; every loss term finite at every step, `aux_hms`
+   > 0; the eval summaries finite; 10 AdamW steps on one fixed batch of
+   128 lower the loss. Prints images/s, ms a step, and the aux heads'
+   share of a step's device time: one profiled step on the fixed batch
+   with the heads and one without (the same model and state, its heads
+   not run), busy time under torch.profiler.
+12. The `decoder="mano"` variant: `apps.train` on `Config()` with
+   `decoder: mano` at batch 64, `--synthetic --steps 6` (the split carries
+   MANO pose and shape labels). Held: 26 B2 launches a step, all on
+   `wgmma`; `mano_pose` finite and > 0 and every term finite at every step.
+13. Card against CPU on one f32 step of `Config()` with the aux heads and
+   the MANO decoder, as phase 9 (one seed pair, batch 4, stored aux
+   targets and MANO labels, the CPU on the card's ReLU, max-pool and
+   hard-swish branches), with phase 9's limits over every parameter, the
+   heads' included; a planted fault, the heatmap term's weight 10% off,
+   must land outside them; the CPU on its own branches is printed.
+14. The engine's buckets (1, 8, 32, 128), which phases 14 and 15 serve
+   at. First B2 in bf16 (on `wgmma`) and B1 in f32 at every shape of a
+   forward at each bucket against their plain versions on random inputs,
+   at phase 2's tolerances (below 4 images an 8² map fills part of B2's
+   4-image tile). Then every B2 and B1 call of one `Config()` forward
+   (seed-0 weights) at batch 128, on its own activations: against its
+   plain version at those tolerances, and on its first 1, 8 and 32
+   images equal bit for bit to the whole batch's result (each kernel's
+   result for an image does not depend on the batch). Then image 0
+   served at bucket 1 and at 128 with a hook on every trunk module: the
+   first module whose output parts must not be a B2 call (printed: which
+   one, and the gap at each stage and output); with every stock
+   convolution run one image at a time, every trunk module's output
+   must be equal bit for bit at both buckets. Printed, not held: the
+   kernels' forward against the plain B2 and B1's at each bucket, and the
+   f32 engine across buckets. Then serving a model trained with the aux
+   heads: `InferenceEngine` on the recipe config with phase 11's final
+   weights, one bucket of 32 images.
+   Held: 13 B2 and 24 B1 launches a forward and no forward of either aux
+   head (the serve forward never asks for them); the outputs equal, within
+   1e-6 of each output's largest value, those of an engine built without
+   the heads on the same trunk and decoder weights.
+15. HTTP: `serve_http.HandPoseHTTPServer` on 127.0.0.1 at an ephemeral
+   port over the flagship engine (seed-0 weights): `/healthz`; three
+   waves of 64 concurrent single-image npy requests (through the batcher),
+   one npy batch of 32 (straight to `predict`) and one JSON request. Held:
+   13 B2 and 24 B1 launches a forward, every B2 on `wgmma`; each response
+   equal, within phase 3's 1e-4 of each output's largest value, to
+   `engine.predict` of the same images batched as the server batched them
+   (the batcher's calls are recorded; printed beside it, unheld, each
+   single response against one predict of all 64, which runs another
+   bucket: phase 14 traces that gap to cuDNN). Prints requests/s and p50/p99 latency of the last wave, with
+   the card's name and power limit.
+16. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+   batch 256 in the flagship's dtypes, B2 per training step at batch 64
+   and per recipe training step at batch 128, B3 per refined sample), and
+   as the last line `{"ok": true, "device": {...}}`.
 
 All f32 comparisons run with TF32 off in cuDNN and cuBLAS
 (`torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -170,6 +228,13 @@ EVAL_N, EVAL_BATCH = 1024, 512
 EVAL_CLI_BATCH = 64  # phase 10's run of apps.eval_interhand
 EVAL_PARITY_N, EVAL_PARITY_BATCH = 10, 4
 EVAL_RTOL = 1e-4  # card vs CPU per-sample metrics, relative to max|verts3d|
+RECIPE_YAML = "configs/convergence_r5d.yaml"  # phase 11's recipe (batch 128)
+RECIPE_SYNTH_N, RECIPE_STEPS = 256, 20  # 2 steps an epoch: evals at steps 8 and 16
+MANO_STEPS = 6
+RECIPE_PARITY_SEEDS = ((0, 2),)  # (init, batch) seeds of phase 13
+AUX_SERVE_N = 32  # one bucket
+AUX_SERVE_RTOL = 1e-6  # engines with and without the aux heads: the same computation
+HTTP_REQUESTS, HTTP_BATCH, HTTP_WAVES = 64, 32, 3
 
 
 def _gpu_line() -> str:
@@ -553,10 +618,10 @@ def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     return result
 
 
-def profile_phase(label: str, fn) -> dict:
+def profile_phase(label: str, fn, top: int = 30) -> dict:
     """Device time by kernel over one call of `fn` (torch.profiler): only
     device-side events count (kernels, memcpy, memset), and the busy time
-    is the union of their intervals."""
+    is the union of their intervals. Prints the `top` kernels by time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -585,8 +650,8 @@ def profile_phase(label: str, fn) -> dict:
     busy_ms = busy_us / 1e3
     print(f"[profile] {label} under the profiler: wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"{len(spans)} device events; by kernel:", flush=True)
-    for ms, count, name in rows[:30]:
+          f"{len(spans)} device events" + ("; by kernel:" if top else ""), flush=True)
+    for ms, count, name in rows[:top]:
         print(f"[profile] {ms:9.3f} ms {count:5d}x  {name[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "device_events": len(spans),
             "kernels": [dict(ms=ms, count=c, name=n) for ms, c, n in rows]}
@@ -875,23 +940,24 @@ def refine_parity_phase(assets) -> dict:
                 params_max_abs_err=param_err, total_rel=total_rel, term_err=term_err)
 
 
-def conv_backward_phase(cfg) -> list:
-    """B2's backward at every training shape, batch TRAIN_BATCH, bf16 and
-    f32 (see the module docstring, phase 7)."""
+def conv_backward_phase(cfg, batch: int = TRAIN_BATCH, dtypes: tuple = ("bfloat16", "float32"),
+                        seed: int = 1) -> list:
+    """B2's backward at every training shape of `batch`, in `dtypes` (see
+    the module docstring, phase 7; phase 11 at the recipe's batch)."""
     import torch
     import torch.nn.functional as F
 
     from renderih_tpu_torch.kernels import conv3x3
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
+    g = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (getattr(torch, d) for d in dtypes):
         dname = str(dtype).split(".")[1]
         atol, rtol = CONV_TOL[dname]
         route = "wgmma" if dtype == torch.bfloat16 else "simt"
         for side, c, per_fwd in conv_shapes(cfg):
-            shape = (TRAIN_BATCH, side, side, c)
+            shape = (batch, side, side, c)
             x = torch.randn(*shape, device=dev, generator=g).to(dtype)
             w = (torch.randn(3, 3, c, c, device=dev, generator=g) / (9 * c) ** 0.5).to(dtype)
             gy = torch.randn(*shape, device=dev, generator=g).to(dtype)
@@ -919,10 +985,10 @@ def conv_backward_phase(cfg) -> list:
             if not err_dw <= (1e-5 if dtype == torch.float32 else 1e-2):
                 raise AssertionError(f"{name} dw: max|Δ|/max|ref| {err_dw:.3e}")
             n_bytes = (x.numel() + w.numel() + x.numel()) * x.element_size()
-            flops = 2 * TRAIN_BATCH * side * side * c * c * 9
+            flops = 2 * batch * side * side * c * c * 9
             dx = lambda: conv3x3.conv3x3_same(gy, w.flip(0, 1).transpose(2, 3).contiguous())
             row = dict(
-                dtype=dname, shape=[TRAIN_BATCH, side, side, c, c],
+                dtype=dname, shape=[batch, side, side, c, c],
                 launches_per_step=2 * per_fwd, route=route,
                 max_abs_err=max(err_dx, err_lib), dw_rel_err=err_dw, atol=atol, rtol=rtol,
                 fwd_ms=_graph_ms(lambda: conv3x3.conv3x3_same(x, w)),
@@ -938,7 +1004,7 @@ def conv_backward_phase(cfg) -> list:
                     nchw(x), w_oihw.shape, nchw(gy), padding=1)),
                 **_bound(n_bytes, flops, dname))
             rows.append(row)
-            print(f"[B2-bwd] {name} x({TRAIN_BATCH},{side},{side},{c}): dx max|Δ| "
+            print(f"[B2-bwd] {name} x({batch},{side},{side},{c}): dx max|Δ| "
                   f"{err_dx:.3e} vs plain, {err_lib:.3e} vs cuDNN conv2d_input (atol {atol:g}, "
                   f"rtol {rtol:g}); dw (cuDNN) rel {err_dw:.2e}  device ms (CUDA graph): "
                   f"fwd {row['fwd_ms']:.4f}, dx {row['dx_ms']:.4f} (with the weight flip), "
@@ -1154,9 +1220,18 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     return result
 
 
-def train_parity_phase(cfg, assets) -> list:
-    """Card against CPU: one SGD step of the flagship in f32, the CPU on
-    the card's branches (see the module docstring, phase 9)."""
+def _two_d_weight_off(cfg) -> str:
+    cfg.loss.label_2d *= 1.1
+    return "the 2-D term's weight 10% off"
+
+
+def train_parity_phase(cfg, assets, seeds=TRAIN_PARITY_SEEDS, tag="train-parity",
+                       plant=_two_d_weight_off, make_batch=None) -> list:
+    """Card against CPU: one SGD step of `cfg` in f32, the CPU on the
+    card's branches (see the module docstring, phases 9 and 13), at each
+    (init, batch) seed pair; `plant` puts a fault into a copy of the
+    config, which must land outside the limits at the first pair;
+    `make_batch(seed)` makes a batch (default: `synthetic_batch`)."""
     import contextlib
     import copy
 
@@ -1173,7 +1248,10 @@ def train_parity_phase(cfg, assets) -> list:
     pcfg.train.optimizer, pcfg.train.precision, pcfg.train.lr = "sgd", "f32", 1.0
     pcfg.train.warmup_epochs, pcfg.model.dropout = 0, 0.0
     fault = copy.deepcopy(pcfg)
-    fault.loss.label_2d *= 1.1
+    fault_name = plant(fault)
+    if make_batch is None:
+        make_batch = lambda seed: synthetic_batch(
+            assets, torch.Generator().manual_seed(seed), PARITY_BATCH, cfg.model.img_size)
 
     def step(run_cfg, dev, init_seed, batch, branches):
         model = init_model(run_cfg, assets, torch.Generator().manual_seed(init_seed))
@@ -1207,10 +1285,9 @@ def train_parity_phase(cfg, assets) -> list:
         return max(gaps.values()) <= GRAD_TOL[0] and share(gaps)[GRAD_TOL[1]] >= GRAD_TOL[2]
 
     rows, ok = [], True
-    for init_seed, batch_seed in TRAIN_PARITY_SEEDS:
+    for init_seed, batch_seed in seeds:
         with torch.no_grad():
-            batch = synthetic_batch(assets, torch.Generator().manual_seed(batch_seed),
-                                    PARITY_BATCH, cfg.model.img_size)
+            batch = make_batch(batch_seed)
         card, taken = step(pcfg, DEVICE, init_seed, batch, record_branches())
         cpu, _ = step(pcfg, "cpu", init_seed, batch, take_branches(taken))
         if card["grads"].keys() != cpu["grads"].keys():
@@ -1222,10 +1299,12 @@ def train_parity_phase(cfg, assets) -> list:
                      for k, v in cpu["bn"].items())
         row = dict(init_seed=init_seed, batch_seed=batch_seed, branches=len(taken),
                    terms_rel=term_err, grad_rel=gaps, grad_share=share(gaps), bn_rel=bn_err)
-        print(f"[train-parity] one SGD step, Config() in f32, TF32 off, dropout 0, batch "
+        print(f"[{tag}] one SGD step, {cfg.model.encoder} at {cfg.model.img_size}² (aux heads "
+              f"{'on' if cfg.model.with_aux_heads else 'off'}, decoder {cfg.model.decoder}) in "
+              f"f32, TF32 off, dropout 0, batch "
               f"{PARITY_BATCH}, init_model seed {init_seed} with the encoder's BatchNorm biases "
               f"+{BN_BIAS_SHIFT:g}, batch seed {batch_seed}, the CPU "
-              f"on the card's branches ({len(taken)} ReLU and max-pool calls): loss terms rel "
+              f"on the card's branches ({len(taken)} ReLU, max-pool and hard-swish calls): loss terms rel "
               f"max|Δ| {term_err:.2e} (limit 1e-4); gradients, max|Δ| over each tensor's "
               f"scale: {line(gaps)} (limits: every tensor {GRAD_TOL[0]:g}, "
               f"{100 * GRAD_TOL[2]:g}% within {GRAD_TOL[1]:g}); BatchNorm statistics "
@@ -1233,19 +1312,20 @@ def train_parity_phase(cfg, assets) -> list:
         ok &= term_err <= 1e-4 and within(gaps) and bn_err <= 1e-5
         free, _ = step(pcfg, "cpu", init_seed, batch, contextlib.nullcontext())
         free_gaps = gradient_gaps(card["grads"], free["grads"])
-        print(f"[train-parity] the same, the CPU on its own branches (not held): "
+        print(f"[{tag}] the same, the CPU on its own branches (not held): "
               f"{line(free_gaps)}", flush=True)
         row.update(free_grad_rel=max(free_gaps.values()), free_share=share(free_gaps))
+        del free
         if not rows:  # a planted fault on the same branches must land outside
             wrong, _ = step(fault, "cpu", init_seed, batch, take_branches(taken))
             fault_gaps = gradient_gaps(wrong["grads"], cpu["grads"])
-            print(f"[train-parity] planted fault, the 2-D term's weight 10% off, on the CPU: "
+            print(f"[{tag}] planted fault, {fault_name}, on the CPU: "
                   f"{line(fault_gaps)}", flush=True)
             row.update(fault_grad_rel=max(fault_gaps.values()), fault_share=share(fault_gaps))
             if within(fault_gaps):
                 raise AssertionError("the gradient limits do not see a planted fault")
         rows.append(row)
-        del card, cpu, free, taken
+        del card, cpu, taken
         torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("card and CPU training steps disagree")
@@ -1433,6 +1513,616 @@ def eval_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     return result
 
 
+def _counters():
+    from renderih_tpu_torch.kernels import conv3x3, fused_attention, sdf
+
+    return (conv3x3.launches, fused_attention.launches, sdf.launches,
+            *conv3x3.routes.values())
+
+
+def _launches() -> dict:
+    from renderih_tpu_torch.kernels import conv3x3, fused_attention, sdf
+
+    return {"conv3x3": conv3x3.launches.value, "fused_mha": fused_attention.launches.value,
+            "sdf_grid": sdf.launches.value}
+
+
+def _check_run_launches(label: str, launches: dict, want: dict) -> None:
+    """The path's launches, reset to 0 before it ran, against `want`, every
+    B2 on `wgmma`; a kernel the path runs must have launched."""
+    if launches != want or _routes() != {"simt": 0, "wgmma": want["conv3x3"]}:
+        raise AssertionError(f"{label}: launches {launches}, B2 routes {_routes()}; expected "
+                             f"{want}, every B2 on wgmma")
+    if not launches["conv3x3"]:
+        raise AssertionError(f"{label}: B2 never launched")
+
+
+def recipe_config(cfg):
+    """`configs/convergence_r5d.yaml` (the newest from-scratch recipe: aux
+    heads, zero-init heads, normal from epoch 16, camera 10, theta ±30,
+    batch 128) on `cfg`'s assets; its checkpoint directory is replaced by
+    the caller."""
+    import os
+
+    from renderih_tpu_torch.config import load_config
+
+    rc = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), RECIPE_YAML))
+    rc.assets = cfg.assets
+    return rc
+
+
+def recipe_train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> tuple:
+    """From-scratch recipe training on the card (see the module docstring,
+    phase 11). Returns (result, the final checkpoint's model state_dict)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import train as train_app
+    from renderih_tpu_torch.data.interhand import PackedInterHand
+    from renderih_tpu_torch.data.pipeline import device_augment
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.models import init_model
+    from renderih_tpu_torch.train.state import checkpoint_state_dict, create_train_state
+    from renderih_tpu_torch.train.trainer import make_train_step
+
+    rcfg = recipe_config(cfg)
+    batch = rcfg.train.batch_size
+    per_fwd_b2 = sum(n for _, _, n in conv_shapes(rcfg))  # 13
+    per_fwd_b1 = sum(n for _, _, n in mha_shapes(rcfg, assets.left.verts_nums))  # 24
+    spe = RECIPE_SYNTH_N // batch
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        yaml = _train_yaml(rcfg, root, "recipe", log_every=1)
+        for counter in _counters():
+            counter.reset()
+        t0 = time.perf_counter()
+        run = train_app.main(["--cfg", yaml, "--synthetic", "--synth_render", "--synth_n",
+                              str(RECIPE_SYNTH_N), "--steps", str(RECIPE_STEPS),
+                              "--device", DEVICE])
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+        n_steps = run["final_step"]
+        eval_steps = [e["step"] for e in run["evals"]]
+        want_evals = [s for s in range(1, RECIPE_STEPS + 1)
+                      if s % spe == 0 and (s // spe) % rcfg.train.eval_every == 0]
+        if n_steps != RECIPE_STEPS or eval_steps != want_evals:
+            raise AssertionError(f"{n_steps} steps, evals at {eval_steps} (expected "
+                                 f"{RECIPE_STEPS}, {want_evals})")
+        # each eval: one forward a batch of the held-out split, one for the overlays
+        n_eval_fwd = sum(-(-e["summary"]["num_samples"] // batch) + 1 for e in run["evals"])
+        want = {"conv3x3": 2 * per_fwd_b2 * n_steps + per_fwd_b2 * n_eval_fwd,
+                "fused_mha": per_fwd_b1 * n_eval_fwd, "sdf_grid": 0}
+        print(f"[recipe] apps.train --cfg {RECIPE_YAML} --synthetic --synth_render --synth_n "
+              f"{RECIPE_SYNTH_N} --steps {RECIPE_STEPS} ({rcfg.model.encoder}, "
+              f"{rcfg.train.precision} encoder, aux heads, batch {batch}): {n_steps} steps and {n_eval_fwd} eval forwards in "
+              f"{seconds:.1f} s, launches {launches} (expected {want}; the aux heads' convs are "
+              f"stock), B2 routes {_routes()}", flush=True)
+        _check_run_launches("recipe training", launches, want)
+        for step, terms in run["logged"]:
+            if (not all(np.isfinite(v) for v in terms.values()) or terms["skipped_nonfinite"]
+                    or not terms["aux_hms"] > 0):
+                raise AssertionError(f"step {step}: terms {terms}")
+        aux_hms = [t["aux_hms"] for _, t in run["logged"]]
+        first, last = run["logged"][0][1], run["logged"][-1][1]
+        for ev in run["evals"]:
+            metrics = {k: v for k, v in ev["summary"].items() if k.endswith("_mm")}
+            if not all(np.isfinite(v) for k, v in metrics.items() if not k.startswith("cdev")):
+                raise AssertionError(f"eval at step {ev['step']}: not finite: {metrics}")
+        steady = run["step_seconds"][train_app.WARMUP_STEPS:]
+        print(f"[recipe] loss {first['total']:.4f} -> {last['total']:.4f}, aux_hms "
+              f"{aux_hms[0]:.5f} -> {aux_hms[-1]:.5f} (every term finite at every step, aux_hms "
+              f"> 0, none skipped); evals at steps {eval_steps}: "
+              + "; ".join(f"mpjpe {e['summary']['mpjpe_mm']:.2f} mm" for e in run["evals"])
+              + f"; {run['images_per_s']:.1f} images/s, {1e3 * np.median(steady):.1f} ms a step "
+              f"(median of steps {train_app.WARMUP_STEPS + 1}-{n_steps}) on {gpu_line}",
+              flush=True)
+        state_dict = checkpoint_state_dict(run["checkpoint"])
+
+        # 10 AdamW steps on one fixed batch lower the loss (as phase 8);
+        # then one step with and one without the aux heads, profiled
+        fcfg = copy.deepcopy(rcfg)
+        fcfg.train.warmup_epochs, fcfg.train.lr = 0, 1e-3
+        data = PackedInterHand.load(f"{root}/recipe/_synth_data", "train")
+        raw = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(np.arange(batch)).items()}
+        fixed = device_augment(raw, torch.Generator(device=DEVICE).manual_seed(0),
+                               img_size=rcfg.model.img_size)
+        model = init_model(fcfg, assets, torch.Generator().manual_seed(0))
+        state = create_train_state(fcfg, model.to(DEVICE, memory_format=torch.channels_last),
+                                   steps_per_epoch=1000)
+        step = make_train_step(fcfg, assets, 1000, DEVICE)
+        losses = [float(step(state, fixed, torch.Generator(device=DEVICE).manual_seed(1))["total"])
+                  for _ in range(FIXED_BATCH_STEPS)]
+        print(f"[recipe] {FIXED_BATCH_STEPS} AdamW steps (lr 1e-3, no warmup) on one fixed batch "
+              f"of {batch}: loss {' '.join(f'{v:.2f}' for v in losses)}", flush=True)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
+        off = copy.deepcopy(fcfg)
+        off.model.with_aux_heads = False  # the same model, its heads not run
+        step_off = make_train_step(off, assets, 1000, DEVICE)
+        prof = {name: profile_phase(f"one recipe step at batch {batch}, aux heads {name}",
+                                    lambda fn=fn: float(fn(state, fixed)["total"]),
+                                    top=30 if profile else 0)
+                for name, fn in (("on", step), ("off", step_off))}
+        share = 1.0 - prof["off"]["busy_ms"] / prof["on"]["busy_ms"]
+        print(f"[recipe] the aux heads' share of a step's device time: {100 * share:.1f}% "
+              f"(busy {prof['on']['busy_ms']:.2f} ms with them, {prof['off']['busy_ms']:.2f} "
+              f"ms without, under the profiler) on {gpu_line}", flush=True)
+        result = dict(steps=n_steps, launches=launches, routes=_routes(),
+                      eval_forwards=n_eval_fwd, seconds=seconds,
+                      images_per_s=run["images_per_s"], step_ms=1e3 * float(np.median(steady)),
+                      step_seconds=run["step_seconds"], loss_first=first["total"],
+                      loss_last=last["total"], aux_hms=aux_hms,
+                      evals=[dict(step=e["step"], summary=e["summary"]) for e in run["evals"]],
+                      fixed_batch_losses=losses, aux_share=share, profile=prof)
+    del state, model, fixed, raw
+    torch.cuda.empty_cache()
+    return result, state_dict
+
+
+def mano_train_phase(cfg, assets, gpu_line: str) -> dict:
+    """`decoder="mano"` training on the card (see the module docstring,
+    phase 12)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import train as train_app
+    from renderih_tpu_torch.kernels import _build
+
+    mcfg = copy.deepcopy(cfg)
+    mcfg.model.decoder = "mano"
+    per_step = 2 * sum(n for _, _, n in conv_shapes(mcfg))  # 26
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        yaml = _train_yaml(mcfg, root, "mano", log_every=1, eval_every=1000, save_gap=1000)
+        for counter in _counters():
+            counter.reset()
+        run = train_app.main(["--cfg", yaml, "--synthetic", "--synth_n", str(TRAIN_SYNTH_N),
+                              "--steps", str(MANO_STEPS), "--device", DEVICE])
+        launches = _launches()
+    n_steps = run["final_step"]
+    want = {"conv3x3": per_step * n_steps, "fused_mha": 0, "sdf_grid": 0}
+    _check_run_launches("mano training", launches, want)
+    for step, terms in run["logged"]:
+        if not (all(np.isfinite(v) for v in terms.values()) and terms["mano_pose"] > 0
+                and not terms["skipped_nonfinite"]):
+            raise AssertionError(f"step {step}: terms {terms}")
+    mano = {k: [t[k] for _, t in run["logged"]] for k in ("mano_pose", "mano_shape", "total")}
+    print(f"[mano] apps.train, Config() with decoder mano, batch {mcfg.train.batch_size}, "
+          f"--synthetic --steps {MANO_STEPS}: {n_steps} steps, launches {launches} (expected "
+          f"{want}), every B2 on wgmma; mano_pose "
+          f"{' '.join(f'{v:.4f}' for v in mano['mano_pose'])}, total "
+          f"{mano['total'][0]:.4f} -> {mano['total'][-1]:.4f}, every term finite; "
+          f"{run['images_per_s']:.1f} images/s on {gpu_line}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(steps=n_steps, launches=launches, terms=mano, images_per_s=run["images_per_s"])
+
+
+def recipe_parity_phase(cfg, assets) -> list:
+    """Card against CPU on one f32 step with the aux heads and the MANO
+    decoder (see the module docstring, phase 13)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.data.synthetic import synthetic_batch
+
+    pcfg = copy.deepcopy(cfg)
+    pcfg.model.with_aux_heads, pcfg.model.decoder = True, "mano"
+
+    def make_batch(seed):
+        batch = synthetic_batch(assets, torch.Generator().manual_seed(seed), PARITY_BATCH,
+                                cfg.model.img_size, with_aux=True)
+        rng = np.random.default_rng(seed)
+        for h in ("left", "right"):
+            batch[f"pose_{h}"] = torch.from_numpy(
+                (rng.normal(size=(PARITY_BATCH, 48)) * 0.3).astype(np.float32))
+            batch[f"shape_{h}"] = torch.from_numpy(
+                rng.normal(size=(PARITY_BATCH, 10)).astype(np.float32))
+        return batch
+
+    def plant(c):
+        c.loss.hms *= 1.1
+        return "the heatmap term's weight 10% off"
+
+    return train_parity_phase(pcfg, assets, seeds=RECIPE_PARITY_SEEDS, tag="recipe-parity",
+                              plant=plant, make_batch=make_batch)
+
+
+def _trunk_trace(engine, images) -> tuple:
+    """One `engine.predict(images)` with a hook on every module of the
+    trunk: ([(module name, its output for image 0)] in the order the
+    modules finished, the outputs for image 0)."""
+    trace, handles = [], []
+    for name, mod in engine.model.encoder.resnet.named_modules():
+        if name:
+            handles.append(mod.register_forward_hook(
+                lambda m, a, out, name=name: trace.append((name, out[0].clone()))))
+    try:
+        out = engine.predict(images)
+    finally:
+        for h in handles:
+            h.remove()
+    return trace, {k: v[0] for k, v in out.items()}
+
+
+def _rel_gaps(got: dict, ref: dict) -> dict:
+    """max|Δ| / max|ref| of each output."""
+    import numpy as np
+
+    return {k: float(np.abs(got[k] - r).max() / max(np.abs(r).max(), 1e-30))
+            for k, r in ref.items()}
+
+
+def bucket_phase(cfg, assets) -> dict:
+    """The serving engine's buckets (see the module docstring, phase 14)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.kernels import conv3x3, fused_attention
+    from renderih_tpu_torch.models import attention, layers, resnet
+    from renderih_tpu_torch.serve import InferenceEngine
+
+    engine = InferenceEngine(cfg, assets=assets, device=DEVICE, seed=0)
+    buckets = engine.buckets
+    size = cfg.model.img_size
+    images = np.random.default_rng(6).integers(0, 256, (buckets[-1], size, size, 3), np.uint8)
+    held = {b: hold_path_kernels(cfg, assets.left.verts_nums, b, seed=20 + i)
+            for i, b in enumerate(buckets)}
+    print("[buckets] the path's kernels at each bucket against their plain versions on random "
+          "inputs, max|Δ| B2 bfloat16 (wgmma) / B1 float32: "
+          + ", ".join(f"batch {b} {h['conv3x3']:.3e} / {h['fused_mha']:.3e}"
+                      for b, h in held.items()), flush=True)
+
+    # every B2 and B1 call of one forward at the largest bucket, on its own
+    # activations: against the plain version, and on its first b images
+    # against itself
+    calls = []
+
+    def recorded(fn, kind):
+        def call(*args):
+            out = fn(*args)
+            calls.append((kind, args, out))
+            return out
+        return call
+
+    resnet.conv3x3_same = recorded(conv3x3.conv3x3_same, "conv3x3")
+    attention.fused_mha = recorded(fused_attention.fused_mha, "fused_mha")
+    try:
+        engine.predict(images)
+    finally:
+        resnet.conv3x3_same, attention.fused_mha = conv3x3.conv3x3_same, fused_attention.fused_mha
+    worst = {"conv3x3": 0.0, "fused_mha": 0.0}
+    variant = []
+    with torch.inference_mode():
+        for i, (kind, args, out) in enumerate(calls):
+            label = f"{kind} call {i} of a forward at batch {buckets[-1]} {tuple(out.shape)}"
+            if kind == "conv3x3":
+                ref = conv3x3.conv3x3_reference(*args)
+                err = _check(label, out, ref, *CONV_TOL[str(out.dtype).split(".")[1]])
+                part = lambda b: conv3x3.conv3x3_same(args[0][:b], args[1])
+            else:
+                ref = fused_attention.mha_reference(*(a.float() for a in args))
+                err = _check(label, out, ref, *MHA_TOL)
+                part = lambda b: fused_attention.fused_mha(*(a[:b] for a in args))
+            worst[kind] = max(worst[kind], err)
+            for b in buckets[:-1]:
+                if not torch.equal(part(b), out[:b]):
+                    variant.append(f"{label} on its first {b} images")
+            del ref
+    n_calls = {k: sum(c[0] == k for c in calls) for k in worst}
+    del calls
+    if variant:
+        raise AssertionError("a kernel's result for an image depends on the batch: "
+                             + "; ".join(variant))
+
+    # image 0 served at bucket 1 and at the largest: where the two part
+    served = {b: _trunk_trace(engine, images[:b]) for b in (buckets[0], buckets[-1])}
+    (trace_a, out_a), (trace_b, out_b) = served.values()
+    first = next(((name, float((a.float() - b.float()).abs().max()
+                               / b.float().abs().max().clamp_min(1e-30)))
+                  for (name, a), (_, b) in zip(trace_a, trace_b) if not torch.equal(a, b)),
+                 None)
+    stages = {name: float((a.float() - b.float()).abs().max()
+                          / b.float().abs().max().clamp_min(1e-30))
+              for (name, a), (_, b) in zip(trace_a, trace_b) if name.count(".") == 0}
+    served_gap = _rel_gaps(out_a, out_b)
+    first_kind = None
+    if first is not None:
+        mod = engine.model.encoder.resnet.get_submodule(first[0])
+        if isinstance(mod, resnet.Conv3x3) and mod.stride == (1, 1):
+            raise AssertionError(f"image 0 parts between buckets first at B2 ({first[0]})")
+        first_kind = (f"a stock {mod.kernel_size[0]}x{mod.kernel_size[1]} convolution, "
+                      f"stride {mod.stride[0]}" if isinstance(mod, layers.Conv2d)
+                      else type(mod).__name__)
+
+    # the same with every stock convolution run one image at a time: the
+    # trunk is then the same computation at both buckets, bit for bit
+    stock = layers.Conv2d.forward
+
+    def per_image(self, x):
+        return torch.cat([stock(self, x[i:i + 1]) for i in range(len(x))])
+
+    layers.Conv2d.forward = per_image
+    try:
+        alone = {b: _trunk_trace(engine, images[:b]) for b in (buckets[0], buckets[-1])}
+    finally:
+        layers.Conv2d.forward = stock
+    (trace_a, out_a), (trace_b, out_b) = alone.values()
+    trunk_equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(trace_a, trace_b))
+    alone_gap = _rel_gaps(out_a, out_b)
+    del served, alone, trace_a, trace_b
+    if not trunk_equal:
+        raise AssertionError("with its stock convolutions one image at a time the trunk "
+                             "still parts between buckets")
+
+    # unheld: the same images through the plain B2 and B1 at each bucket,
+    # and the f32 engine across buckets
+    plain_gap = {}
+    for b in buckets:
+        got = engine.predict(images[:b])
+        resnet.conv3x3_same = conv3x3.conv3x3_reference
+        attention.fused_mha = fused_attention.mha_reference
+        try:
+            want = engine.predict(images[:b])
+        finally:
+            resnet.conv3x3_same = conv3x3.conv3x3_same
+            attention.fused_mha = fused_attention.fused_mha
+        plain_gap[b] = max(_rel_gaps(got, want).values())
+    f32 = copy.deepcopy(cfg)
+    f32.train.precision = "f32"
+    del engine
+    engine = InferenceEngine(f32, assets=assets, device=DEVICE, seed=0)
+    f32_gap = _rel_gaps({k: v[0] for k, v in engine.predict(images[:1]).items()},
+                        {k: v[0] for k, v in engine.predict(images).items()})
+    del engine
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    fmt = lambda d: ", ".join(f"{k} {v:.2e}" for k, v in d.items())
+    print(f"[buckets] Config() seed-0 engine, buckets {list(buckets)}: every B2 (bfloat16, "
+          f"wgmma) and B1 (float32) call of a forward at batch {buckets[-1]} "
+          f"({n_calls}) against its plain version on its own activations, max|Δ| "
+          f"{worst['conv3x3']:.3e} / {worst['fused_mha']:.3e} (limits as phase 2), and on "
+          f"its first {list(buckets[:-1])} images equal bit for bit to the whole batch's", flush=True)
+    print(f"[buckets] image 0 served at bucket {buckets[0]} and at {buckets[-1]}, max|Δ| / "
+          f"max|ref|: the trunk first parts at "
+          + (f"{first[0]} ({first_kind}, {first[1]:.2e})" if first else "no module")
+          + f"; the stages {fmt(stages)}; the outputs {fmt(served_gap)}", flush=True)
+    print(f"[buckets] with the stock convolutions one image at a time: the trunk's every "
+          f"module equal bit for bit at both buckets, the outputs (the f32 decoder's "
+          f"cuBLAS left to part) {fmt(alone_gap)}", flush=True)
+    print(f"[buckets] not held: at each bucket the kernels' forward against the plain B2 and "
+          f"B1's on the same weights and images, the largest max|Δ| / max|ref| of an output "
+          f"{fmt(plain_gap)}; the f32 engine (TF32 off), image 0 at bucket {buckets[0]} and "
+          f"{buckets[-1]}: {fmt(f32_gap)}", flush=True)
+    return dict(random_inputs=held, conv3x3=worst["conv3x3"], fused_mha=worst["fused_mha"],
+                n_calls=n_calls, first_part=first,
+                stages=stages, served=served_gap, stock_per_image=alone_gap,
+                plain_vs_kernel=plain_gap, f32=f32_gap)
+
+
+def aux_serve_phase(cfg, assets, state_dict: dict) -> dict:
+    """Serving a model trained with the aux heads (see the module
+    docstring, phase 14)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.serve import InferenceEngine
+
+    rcfg = recipe_config(cfg)
+    per_fwd = {"conv3x3": sum(n for _, _, n in conv_shapes(rcfg)),  # 13
+               "fused_mha": sum(n for _, _, n in mha_shapes(rcfg, assets.left.verts_nums)),
+               "sdf_grid": 0}
+    images = np.random.default_rng(4).integers(0, 256, (AUX_SERVE_N, rcfg.model.img_size,
+                                                        rcfg.model.img_size, 3), np.uint8)
+    engine = InferenceEngine(rcfg, assets=assets, state_dict=state_dict, device=DEVICE)
+    head_calls = []
+    for name in ("hms_head", "dp_head"):
+        getattr(engine.model, name).register_forward_hook(
+            lambda *a, name=name: head_calls.append(name))
+    forwards = [0]
+    engine.model.register_forward_pre_hook(
+        lambda *a: forwards.__setitem__(0, forwards[0] + 1))
+    for counter in _counters():
+        counter.reset()
+    got = engine.predict(images)
+    launches = _launches()
+    want = {k: n * forwards[0] for k, n in per_fwd.items()}
+    _check_run_launches("aux-on serving", launches, want)
+    if head_calls:
+        raise AssertionError(f"the serving forward ran the aux heads: {head_calls}")
+    off = copy.deepcopy(rcfg)
+    off.model.with_aux_heads = False
+    plain = InferenceEngine(off, assets=assets, device=DEVICE, state_dict={
+        k: v for k, v in state_dict.items() if not k.startswith(("hms_head.", "dp_head."))})
+    want_out = plain.predict(images)
+    errs = {k: float(np.abs(got[k] - ref).max() / max(np.abs(ref).max(), 1e-6))
+            for k, ref in want_out.items()}
+    print(f"[aux-serve] InferenceEngine on {RECIPE_YAML} with phase 11's trained weights, "
+          f"{AUX_SERVE_N} images: {forwards[0]} forwards, launches {launches} (expected {want}), "
+          f"no aux-head forward; against an engine without the heads on the same trunk and "
+          f"decoder weights, max|Δ| / max|ref| per output: "
+          + ", ".join(f"{k}={v:.2e}" for k, v in errs.items())
+          + f" (limit {AUX_SERVE_RTOL:g})", flush=True)
+    if max(errs.values()) > AUX_SERVE_RTOL:
+        raise AssertionError("the aux-head engine's outputs differ from the engine without heads")
+    del engine, plain
+    torch.cuda.empty_cache()
+    return dict(launches=launches, forwards=forwards[0], rel_err=errs)
+
+
+def _http_post(url: str, body: bytes, ctype: str) -> tuple:
+    """POST `body` to `url`: (response body, its content type, seconds)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST", headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        data, got_type = r.read(), r.headers.get("Content-Type")
+    return data, got_type, time.perf_counter() - t0
+
+
+def _http_wave(url: str, bodies: list, ctype: str) -> tuple:
+    """All `bodies` POSTed at once, a thread each: (wall seconds, [(body,
+    content type, seconds)] in order). Runs in a client process of its own,
+    so that the load does not share the server's interpreter lock."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        t0 = time.perf_counter()
+        res = list(pool.map(lambda b: _http_post(url, b, ctype), bodies))
+    return time.perf_counter() - t0, res
+
+
+def http_phase(cfg, assets, gpu_line: str) -> dict:
+    """The HTTP front end on the card (see the module docstring, phase 15)."""
+    import io
+    import json as json_mod
+    import multiprocessing
+    import threading
+    import urllib.request
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.serve import InferenceEngine
+    from renderih_tpu_torch.serve_http import HandPoseHTTPServer
+
+    size = cfg.model.img_size
+    per_fwd = {"conv3x3": sum(n for _, _, n in conv_shapes(cfg)),
+               "fused_mha": sum(n for _, _, n in mha_shapes(cfg, assets.left.verts_nums)),
+               "sdf_grid": 0}
+    engine = InferenceEngine(cfg, assets=assets, device=DEVICE, seed=0)
+    engine.warmup()
+    groups, lock = [], threading.Lock()  # the batches the engine ran, and their outputs
+    predict = engine.predict
+
+    def logged_predict(images):
+        out = predict(images)
+        with lock:
+            groups.append((np.array(images), out))
+        return out
+
+    engine.predict = logged_predict
+    forwards = [0]
+    engine.model.register_forward_pre_hook(lambda *a: forwards.__setitem__(0, forwards[0] + 1))
+    server = HandPoseHTTPServer(engine, host="127.0.0.1", port=0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    rng = np.random.default_rng(5)
+    singles = rng.integers(0, 256, (HTTP_REQUESTS, size, size, 3), np.uint8)
+    batch = rng.integers(0, 256, (HTTP_BATCH, size, size, 3), np.uint8)
+
+    def npy(a):
+        buf = io.BytesIO()
+        np.save(buf, a)
+        return buf.getvalue()
+
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json_mod.loads(r.read())
+        if health != {"status": "ok", "buckets": list(engine.buckets),
+                      "encoder": cfg.model.encoder}:
+            raise AssertionError(f"/healthz: {health}")
+        for counter in _counters():
+            counter.reset()
+        forwards[0] = 0
+        waves = []
+        bodies = [npy(img) for img in singles]
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as client:
+            for _ in range(HTTP_WAVES):
+                groups.clear()
+                wall, res = client.submit(_http_wave, f"{url}/predict", bodies,
+                                          "application/x-npy").result(timeout=900)
+                waves.append((wall, res, list(groups)))
+        served_groups = waves[-1][2]
+        body, btype, batch_s = _http_post(f"{url}/predict", npy(batch), "application/x-npy")
+        jbody, jtype, json_s = _http_post(
+            f"{url}/predict", json_mod.dumps({"image": singles[0].tolist()}).encode(),
+            "application/json")
+        launches, n_fwd = _launches(), forwards[0]
+    finally:
+        server.close()
+    engine.predict = predict
+    want = {k: n * n_fwd for k, n in per_fwd.items()}
+    _check_run_launches("HTTP serving", launches, want)
+    if btype != "application/x-npz" or jtype != "application/json":
+        raise AssertionError(f"content types {btype}, {jtype}")
+
+    def gap(got: dict, ref: dict) -> float:
+        worst = 0.0
+        for k, want_v in ref.items():
+            g = np.asarray(got[k], np.float32)
+            if g.shape != want_v.shape:
+                raise AssertionError(f"{k}: shape {g.shape}, expected {want_v.shape}")
+            worst = max(worst, float(np.abs(g - want_v).max()
+                                     / max(np.abs(want_v).max(), 1e-6)))
+        return worst
+
+    # each response against engine.predict of the same images, batched as
+    # the server batched them (the images a batcher call coalesced, the
+    # explicit batch, the JSON image alone)
+    errs = {}
+    index = {singles[i].tobytes(): i for i in range(HTTP_REQUESTS)}
+    replies = {i: dict(np.load(io.BytesIO(data))) for i, (data, _, _) in enumerate(waves[-1][1])}
+    worst_single, rows = 0.0, 0
+    for images, _ in served_groups:
+        ref = engine.predict(images)
+        for j, img in enumerate(images):
+            worst_single = max(worst_single, gap(replies[index[img.tobytes()]],
+                                                 {k: v[j] for k, v in ref.items()}))
+            rows += 1
+    if rows != HTTP_REQUESTS:
+        raise AssertionError(f"the batcher's calls hold {rows} images, not {HTTP_REQUESTS}")
+    errs["single"] = worst_single
+    errs["batch"] = gap(dict(np.load(io.BytesIO(body))), engine.predict(batch))
+    errs["json"] = gap({k: np.asarray(v) for k, v in json_mod.loads(jbody).items()},
+                       {k: v[0] for k, v in engine.predict(singles[:1]).items()})
+    # unheld: each single response against one predict of all of them (another bucket)
+    whole = engine.predict(singles)
+    across = max(gap(replies[i], {k: v[i] for k, v in whole.items()})
+                 for i in range(HTTP_REQUESTS))
+    wall, res, _ = waves[-1]
+    lat = np.array([r[2] for r in res]) * 1e3
+    rps = HTTP_REQUESTS / wall
+    sizes = sorted(len(images) for images, _ in served_groups)
+    print(f"[http] serve_http on 127.0.0.1:{server.port}, Config() seed-0 weights: /healthz "
+          f"{health}; {HTTP_WAVES} waves of {HTTP_REQUESTS} concurrent single-image npy "
+          f"requests from a client process (the last: {rps:.1f} requests/s, latency p50 "
+          f"{np.percentile(lat, 50):.1f} ms, p99 {np.percentile(lat, 99):.1f} ms, batcher "
+          f"calls of {sizes} images; earlier waves "
+          + ", ".join(f"{HTTP_REQUESTS / w[0]:.1f}" for w in waves[:-1])
+          + f" requests/s), one npy batch of {HTTP_BATCH} ({1e3 * batch_s:.1f} ms), one JSON "
+          f"request ({1e3 * json_s:.1f} ms); launches {launches} (expected {want}), every B2 "
+          f"on wgmma; responses vs engine.predict of the same images as batched, max|Δ| / "
+          f"max|ref|: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (limit {PATH_RTOL:g}); singles vs one predict of all {HTTP_REQUESTS} (not "
+          f"held: another bucket, another cuDNN plan for the stock convolutions, phase 14) "
+          f"{across:.2e}; on "
+          f"{gpu_line}", flush=True)
+    if max(errs.values()) > PATH_RTOL:
+        raise AssertionError("an HTTP response differs from engine.predict")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(requests_per_s=rps, latency_ms_p50=float(np.percentile(lat, 50)),
+                latency_ms_p99=float(np.percentile(lat, 99)),
+                waves=[dict(seconds=w[0], batcher_calls=sorted(len(g[0]) for g in w[2]))
+                       for w in waves],
+                batch_ms=1e3 * batch_s, json_ms=1e3 * json_s, launches=launches,
+                rel_err=errs, across_buckets_rel=across)
+
+
 def _summary(rows: list, launches: int) -> dict:
     """One kernel's totals over the launches of one unit of its path (a
     flagship forward at batch 256; a refined sample)."""
@@ -1513,6 +2203,19 @@ def run(json_path: str | None, profile: bool) -> int:
     train = train_phase(cfg, assets, gpu_line, profile)
     train_parity = train_parity_phase(cfg, assets)
     evaluation = eval_phase(cfg, assets, gpu_line, profile)
+    recipe_batch = recipe_config(cfg).train.batch_size
+    recipe_bwd = conv_backward_phase(cfg, batch=recipe_batch, dtypes=("bfloat16",), seed=11)
+    recipe_held = hold_path_kernels(cfg, verts_nums, recipe_batch, seed=12)
+    print(f"[recipe] the path's kernels at batch {recipe_batch} against their plain versions: "
+          f"B2 bfloat16 (wgmma) forward and dx above, forward again max|Δ| "
+          f"{recipe_held['conv3x3']:.3e}; B1 float32 (the in-training eval) max|Δ| "
+          f"{recipe_held['fused_mha']:.3e}", flush=True)
+    recipe, recipe_state = recipe_train_phase(cfg, assets, gpu_line, profile)
+    mano = mano_train_phase(cfg, assets, gpu_line)
+    recipe_parity = recipe_parity_phase(cfg, assets)
+    buckets = bucket_phase(cfg, assets)
+    aux_serve = aux_serve_phase(cfg, assets, recipe_state)
+    http = http_phase(cfg, assets, gpu_line)
     per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
     b3_ms = synth["per_sample"] * on_path[0]["ms"]
     print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
@@ -1529,6 +2232,9 @@ def run(json_path: str | None, profile: bool) -> int:
              replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_train_summary([r for r in bwd_rows if r["dtype"] == "bfloat16"],
                               train["launches"]["conv3x3"])),
+        dict(name="conv3x3_same", path="recipe_train", route="cuda",
+             source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
+             **_train_summary(recipe_bwd, recipe["launches"]["conv3x3"])),
         dict(name="fused_mha", path="serve", route="cuda", source=f"{src}/csrc/fused_attention.cu",
              replaces="renderih_tpu/kernels/fused_attention.py:43",
              **_summary([r for r in rows["fused_mha"] if r["dtype"] == "float32"],
@@ -1544,7 +2250,11 @@ def run(json_path: str | None, profile: bool) -> int:
                        "main_path": path, "parity": errs, "synth_path": synth,
                        "refine_parity": refine, "conv_backward": bwd_rows,
                        "train_path": train, "train_parity": train_parity,
-                       "eval_path": evaluation, "kernels": kernels}, f, indent=1,
+                       "eval_path": evaluation, "recipe_conv_backward": recipe_bwd,
+                       "recipe_held": recipe_held, "recipe_path": recipe, "mano_path": mano,
+                       "recipe_parity": recipe_parity, "buckets": buckets,
+                       "aux_serve": aux_serve,
+                       "http_path": http, "kernels": kernels}, f, indent=1,
                       default=float)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
@@ -1560,7 +2270,8 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one flagship "
                              "predict at the largest bucket, one refined sample, "
-                             "one training step and one eval batch (torch.profiler)")
+                             "one training step, one eval batch and one recipe step "
+                             "with and without the aux heads (torch.profiler)")
     args = parser.parse_args()
     try:
         return run(args.json, args.profile)

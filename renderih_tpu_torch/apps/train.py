@@ -21,7 +21,9 @@ size) and logged under `eval/` in `metrics.jsonl`; with `ema_decay > 0`
 also the EMA parameters, under `eval_ema/`; with `vis_every_eval`,
 prediction and ground-truth overlays of the first samples are written
 under `vis/`. Eval changes nothing of training and its time stays out of
-the training images/s.
+the training images/s. The from-scratch recipes (`configs/convergence_r5*.yaml`,
+`configs/probe_aux.yaml`: the aux heads) and `decoder: mano` configs run
+as they are; their `aux_*` and `mano_*` loss terms are logged with the others.
 """
 
 from __future__ import annotations
@@ -269,10 +271,12 @@ def main(argv=None) -> dict:
                 if terms is not None:
                     steady = step_seconds[WARMUP_STEPS:] or step_seconds
                     ips = batch_size / statistics.median(steady)
-                    log.info("step %d/%d epoch %d loss %.4f (v3d %.4f v2d %.4f joint %.4f) "
+                    heads = "".join(f" {k} {v:.4f}" for k, v in terms.items()
+                                    if k.startswith(("aux_", "mano_")))
+                    log.info("step %d/%d epoch %d loss %.4f (v3d %.4f v2d %.4f joint %.4f%s) "
                              "%.1f img/s", i + 1, total_steps, (i + 1) // steps_per_epoch,
                              terms["total"], terms["vert3d"], terms["vert2d"],
-                             terms["joint"], ips)
+                             terms["joint"], heads, ips)
                     writer.write(i + 1, terms, prefix="train/")
                     writer.write(i + 1, {"images_per_sec": ips})
                     logged.append((i + 1, terms))

@@ -9,8 +9,9 @@ camera). Label semantics match the runtime loader (`core/loader.py:
 
 `synthetic_draws` makes the random draws from a `torch.Generator` and
 `synthetic_from_draws` turns them into a batch, so a caller can feed any
-draws; `synthetic_batch` is the two in one. The aux-head targets
-(`with_aux`) wait for `with_aux_heads`.
+draws; `synthetic_batch` is the two in one. `synthetic_aux_targets` (and
+`with_aux=True`) adds the aux heads' targets: joint heatmaps, silhouettes
+and densepose renders consistent with the labels.
 """
 
 from __future__ import annotations
@@ -19,9 +20,12 @@ import math
 
 import torch
 
+from renderih_tpu_torch.assets import _dense_color_from_template
 from renderih_tpu_torch.mano.layer import mano_forward
+from renderih_tpu_torch.ops.heatmap import joint_heatmap_targets
 from renderih_tpu_torch.ops.projection import orthographic_project
 from renderih_tpu_torch.ops.rotation import rodrigues
+from renderih_tpu_torch.render.rasterize import pick_row_block, rasterize_orthographic
 
 
 def _uniform(gen, shape, low: float, high: float) -> torch.Tensor:
@@ -63,7 +67,7 @@ def synthetic_draws(gen: torch.Generator, batch_size: int = 8, img_size: int = 2
 
 def synthetic_from_draws(assets, draws: dict, img_size: int = 256,
                          bone_length: float = 0.095, with_cam: bool = False,
-                         scene: bool = False) -> dict:
+                         scene: bool = False, with_aux: bool = False) -> dict:
     """The batch of `synthetic_batch` from its draws (see there)."""
     def hand(model, side):
         root = rodrigues(draws[f"root_{side}"])
@@ -113,13 +117,47 @@ def synthetic_from_draws(assets, draws: dict, img_size: int = 256,
         # labels (never fed to the model)
         batch.update({"cam_scale_left": sc_l, "cam_trans_left": tr_l,
                       "cam_scale_right": sc_r, "cam_trans_right": tr_r})
+    if with_aux:
+        batch.update(synthetic_aux_targets(
+            assets, img_size, {"left": sc_l, "right": sc_r}, {"left": tr_l, "right": tr_r},
+            {"left": v3d_l, "right": v3d_r}, {"left": j2d_l, "right": j2d_r}))
     return batch
+
+
+def synthetic_aux_targets(assets, img_size: int, scale: dict, trans2d: dict, v3d: dict,
+                          j2d: dict) -> dict:
+    """The aux heads' targets at their resolution S = img_size // 4, from
+    each hand's camera, 3-D vertices and 2-D joints: 'hms' (B, S, S, 42),
+    the 21 left then 21 right joint Gaussians (sigma max(S/32, 1)); 'mask'
+    (B, S, S), the two-hand union silhouette; 'mask_left'/'mask_right',
+    each hand's own (which gate its dense half in `aux_losses`); 'dense'
+    (B, S, S, 6), each hand's template-coordinate colours rendered inside
+    its silhouette, left first. The reference renders these offline
+    (`miscellaneous/interhand_ori_gen.py`)."""
+    s = img_size // 4
+
+    def hand_dense(hand_assets, sc, tr, v):
+        faces = hand_assets.mano.faces
+        colors = torch.from_numpy(_dense_color_from_template(hand_assets.mano)).to(
+            device=v.device, dtype=torch.float32)
+        v2d = orthographic_project(sc, tr, v, s)
+        attr, mask, _ = rasterize_orthographic(
+            v2d, v[..., 2], colors.expand(v.shape[0], -1, -1), faces, height=s, width=s,
+            row_block=pick_row_block(v.shape[0], s, s, faces.shape[0]))
+        return attr * mask[..., None], mask.to(torch.float32)
+
+    dense_l, mask_l = hand_dense(assets.left, scale["left"], trans2d["left"], v3d["left"])
+    dense_r, mask_r = hand_dense(assets.right, scale["right"], trans2d["right"], v3d["right"])
+    return {"hms": joint_heatmap_targets(j2d["left"], j2d["right"], s, img_size),
+            "mask": torch.maximum(mask_l, mask_r),
+            "mask_left": mask_l, "mask_right": mask_r,
+            "dense": torch.cat([dense_l, dense_r], dim=-1)}
 
 
 def synthetic_batch(assets, gen: torch.Generator, batch_size: int = 8,
                     img_size: int = 256, bone_length: float = 0.095,
                     with_cam: bool = False, with_img: bool = True,
-                    scene: bool = False) -> dict:
+                    scene: bool = False, with_aux: bool = False) -> dict:
     """A synthetic batch on `gen`'s device (the assets' MANO models must be
     there too).
 
@@ -129,6 +167,8 @@ def synthetic_batch(assets, gen: torch.Generator, batch_size: int = 8,
     in the real InterHand crops (`core/loader.py:180-219`): the right hand
     at a sampled root offset from the left, one shared orthographic camera
     fit so the pair fills most of the frame, v3d_right/j3d_right in the
-    scene frame (left root at the origin)."""
+    scene frame (left root at the origin). `with_aux` adds the aux heads'
+    targets (`synthetic_aux_targets`)."""
     draws = synthetic_draws(gen, batch_size, img_size, with_img, scene)
-    return synthetic_from_draws(assets, draws, img_size, bone_length, with_cam, scene)
+    return synthetic_from_draws(assets, draws, img_size, bone_length, with_cam, scene,
+                                with_aux)

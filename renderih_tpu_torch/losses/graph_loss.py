@@ -19,8 +19,8 @@ decoder output:
     (`core/Loss.py:213-214`).
 
 `assets` is an `Assets` whose `j_reg_21`, `mano.faces`, `perm` and
-`upsample_init` live on the outputs' device (`assets.assets_to`). The
-aux-head losses (`aux_losses`) wait for `with_aux_heads`.
+`upsample_init` live on the outputs' device (`assets.assets_to`).
+`aux_losses` supervises the aux heads of `model.with_aux_heads`.
 """
 
 from __future__ import annotations
@@ -217,3 +217,40 @@ def two_hand_graph_loss(out, batch: dict, assets, epoch: int,
     terms["coarse2d"] = sum(coarse2d_terms)
     terms["total"] = total
     return total, terms
+
+
+def aux_losses(aux: dict, batch: dict, w_mask: float = 500.0, w_dense: float = 30.0,
+               w_hms: float = 100.0) -> dict:
+    """Aux-head supervision (`calc_aux_loss`, `core/Loss.py:180-198`), a
+    term for each target the batch carries: 'mask' (B, S, S) smooth-L1
+    (beta 0.05); 'dense' (B, S, S, 6) smooth-L1 of each hand's 3 channels
+    inside its own silhouette ('mask_left'/'mask_right', else the union
+    'mask', else ungated); 'hms' (B, S, S, 42) MSE. Weights as
+    `LOSS_WEIGHT.AUX` (`utils/defaults.yaml:51-54`); 'total' is their sum.
+
+    The per-hand gating is the reference's intent: its slicing of a
+    (B, H, W) mask (`core/Loss.py:186-189`) takes rows, on a path it
+    zeroes (`core/Loss.py:210`)."""
+    terms = {}
+    total = 0.0
+    if "mask" in batch and aux.get("mask") is not None:
+        terms["mask"] = smooth_l1(aux["mask"], batch["mask"], beta=0.05)
+        total = total + w_mask * terms["mask"]
+    if "dense" in batch and aux.get("dense") is not None:
+        pred, tgt = aux["dense"], batch["dense"]
+        m_l = batch.get("mask_left", batch.get("mask"))
+        m_r = batch.get("mask_right", batch.get("mask"))
+        if m_l is not None:
+            d_l = smooth_l1(pred[..., :3] * m_l[..., None], tgt[..., :3] * m_l[..., None],
+                            beta=0.05)
+            d_r = smooth_l1(pred[..., 3:] * m_r[..., None], tgt[..., 3:] * m_r[..., None],
+                            beta=0.05)
+            terms["dense"] = 0.5 * (d_l + d_r)
+        else:
+            terms["dense"] = smooth_l1(pred, tgt, beta=0.05)
+        total = total + w_dense * terms["dense"]
+    if "hms" in batch and aux.get("hms") is not None:
+        terms["hms"] = ((aux["hms"] - batch["hms"]) ** 2).mean()
+        total = total + w_hms * terms["hms"]
+    terms["total"] = total
+    return terms

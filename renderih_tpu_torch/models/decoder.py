@@ -5,7 +5,9 @@ verts -> learned V_out -> 778 upsample -> orthographic projection, plus
 per-hand camera (scale, trans2d) heads (`decoder_lijun_graph.py:151-320`).
 Names follow the upstream state_dict: `gf_layer_left.{0,1}`, `dual_gcn.*`,
 `coord_head`, `avg_head`, `params_head`, `unsample_layer.weight` (sic).
-The MANO-parameter head (`decoder="mano"`) is not ported yet.
+With `decoder="mano"` the MANO-parameter head `param_regressor` runs on
+each hand's final vertices (`decoder_lijun_newgraph.py`); its names are
+the JAX module's (no upstream checkpoint carries it).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from renderih_tpu_torch.models.dual_graph import DualGraph
@@ -27,6 +30,34 @@ class DecoderOutput(NamedTuple):
     trans2d: dict          # {'left','right'}: (B, 2)
     coarse_verts3d: dict   # {'left','right'}: list[(B, V_out, 3)]
     coarse_verts2d: dict   # projections of the above
+    mano_pose: dict | None = None   # {'left','right'}: (B, 96), 16 x 6D (decoder="mano")
+    mano_shape: dict | None = None  # {'left','right'}: (B, 10)
+    aux: dict | None = None         # {'hms','mask','dense'} (HandNet's aux heads)
+
+
+class ParamRegressor(nn.Module):
+    """778x3 coordinates -> MANO pose (16 x 6D rotations) and shape (10):
+    Linear 1024, Linear 512, then a pose branch (`pose_fc1` 128, `pose_fc2`
+    96) and a shape branch (`shape_fc1` 128, `shape_fc2` 10), hard-swish
+    after every layer but the two last (`ParamRegressor`,
+    `decoder_lijun_graph.py:117-149`). The 6D -> matrix conversion is the
+    loss's. `dense.{0,1}` are the JAX module's `Dense_0`/`Dense_1`."""
+
+    def __init__(self, num_verts: int = 778):
+        super().__init__()
+        self.dense = nn.ModuleList([Linear(num_verts * 3, 1024), Linear(1024, 512)])
+        self.pose_fc1 = Linear(512, 128)
+        self.pose_fc2 = Linear(128, 16 * 6)
+        self.shape_fc1 = Linear(512, 128)
+        self.shape_fc2 = Linear(128, 10)
+
+    def forward(self, verts: torch.Tensor):
+        h = verts.reshape(verts.shape[0], -1)
+        for layer in self.dense:
+            h = F.hardswish(layer(h))
+        pose6d = self.pose_fc2(F.hardswish(self.pose_fc1(h)))
+        shape = self.shape_fc2(F.hardswish(self.shape_fc1(h)))
+        return pose6d, shape
 
 
 class GraphDecoder(nn.Module):
@@ -40,7 +71,7 @@ class GraphDecoder(nn.Module):
                  graph_layer_num: int = 4, n_heads: int = 4,
                  dropout: float = 0.05, num_verts: int = 778,
                  img_size: int = 256, bbox_dim: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 with_mano_head: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.verts_nums = tuple(verts_nums)
         self.img_size = img_size
@@ -60,6 +91,7 @@ class GraphDecoder(nn.Module):
         self.params_head = Linear(c_out, 3)
         self.coord_head = Linear(c_out, 3)
         self.unsample_layer = Linear(self.verts_nums[-1], num_verts, bias=False)
+        self.param_regressor = ParamRegressor(num_verts) if with_mano_head else None
 
     def _tokens(self, gf_layer: nn.Module, global_feature: torch.Tensor,
                 pe: torch.Tensor) -> torch.Tensor:
@@ -99,6 +131,12 @@ class GraphDecoder(nn.Module):
                 coarse.transpose(1, 2)).transpose(1, 2)
             verts2d[hand] = orthographic_project(
                 scale[hand], trans2d[hand], verts3d[hand], self.img_size)
+        mano_pose = mano_shape = None
+        if self.param_regressor is not None:
+            mano_pose, mano_shape = {}, {}
+            for hand in feats:
+                mano_pose[hand], mano_shape[hand] = self.param_regressor(verts3d[hand])
         return DecoderOutput(verts3d=verts3d, verts2d=verts2d, scale=scale,
                              trans2d=trans2d, coarse_verts3d=coarse3d,
-                             coarse_verts2d=coarse2d)
+                             coarse_verts2d=coarse2d, mano_pose=mano_pose,
+                             mano_shape=mano_shape)

@@ -10,6 +10,14 @@ layout `utils/weights.py:state_dict_from_jax` produces.
 Precision policy, as in the JAX package: the encoder runs in bf16 under
 `train.precision="bf16"`, the decoder trunk in f32 unless
 `model.decoder_f32=False`, the heads always in f32; parameters are f32.
+
+With `model.with_aux_heads` the network also holds the joint-heatmap
+head `hms_head` (42 = 21 joints x 2 hands) and the mask + densepose head
+`dp_head` (7 = 1 + 3 x 2) on the raw coarsest trunk map. They run only
+when `forward` is asked for them (`aux=True`, the train step): the JAX
+package's serve and eval steps drop the heads' outputs, and XLA then
+drops the heads; an eager forward would compute them (about as many
+FLOPs again as the ResNet-50 trunk at 256²).
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from torch import nn
 from renderih_tpu_torch.assets import Assets
 from renderih_tpu_torch.config import Config
 from renderih_tpu_torch.models.decoder import DecoderOutput, GraphDecoder
-from renderih_tpu_torch.models.resnet import ResNet, ResNetMid
+from renderih_tpu_torch.models.resnet import AuxDecoderHead, ResNet, ResNetMid
 
 
 class ResNetEncoder(nn.Module):
@@ -40,12 +48,12 @@ def _check_supported(cfg: Config) -> None:
         (f"encoder={m.encoder}", not m.encoder.startswith("resnet")),
         ("paired_lr", m.paired_lr),
         ("use_cheby", m.use_cheby),
-        (f"decoder={m.decoder}", m.decoder != "graph"),
-        ("with_aux_heads", m.with_aux_heads),
+        (f"decoder={m.decoder}", m.decoder not in ("graph", "mano")),
     ) if on]
     if missing:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(missing)} (see ROADMAP.md)")
+            f"not ported yet: {', '.join(missing)} (the port runs the ResNet "
+            "encoders with the MLP graph or mano decoder; see ROADMAP.md)")
 
 
 class HandNet(nn.Module):
@@ -73,13 +81,21 @@ class HandNet(nn.Module):
             dropout=m.dropout,
             img_size=m.img_size,
             bbox_dim=bbox_dim,
+            with_mano_head=m.decoder == "mano",
             dtype=torch.float32 if m.decoder_f32 else self.dtype,
         )
+        self.hms_head = self.dp_head = None
+        if m.with_aux_heads:
+            self.hms_head = AuxDecoderHead(pyramid_dims[0], 42)
+            self.dp_head = AuxDecoderHead(pyramid_dims[0], 7)
 
     def forward(self, img: torch.Tensor, pe_left: torch.Tensor,
                 pe_right: torch.Tensor,
-                bbox_info: torch.Tensor | None = None) -> DecoderOutput:
-        """img: (B, H, W, 3) ImageNet-normalised RGB."""
+                bbox_info: torch.Tensor | None = None, aux: bool = False) -> DecoderOutput:
+        """img: (B, H, W, 3) ImageNet-normalised RGB. With `aux` (and the
+        aux heads built) the output's `aux` holds the heads' float32
+        predictions, NHWC: 'hms' (B, S, S, 42), 'mask' (B, S, S) and
+        'dense' (B, S, S, 6), S = img_size / 4."""
         x = img.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, channels_last
         pyramid = self.encoder(x)
         # The decoder reads the first len(verts_nums) maps. Training projects
@@ -88,8 +104,14 @@ class HandNet(nn.Module):
         n_levels = None if self.training else len(self.decoder.verts_nums)
         global_feature, fmaps = self.mid_model(pyramid, n_levels)
         used = fmaps[:len(self.decoder.verts_nums)]
-        return self.decoder(global_feature.float(), [f.float() for f in used],
-                            pe_left, pe_right, bbox_info)
+        out = self.decoder(global_feature.float(), [f.float() for f in used],
+                           pe_left, pe_right, bbox_info)
+        if aux and self.hms_head is not None:
+            nhwc = lambda head: head(pyramid[0]).float().permute(0, 2, 3, 1)
+            hms = nhwc(self.hms_head)
+            dp = nhwc(self.dp_head)
+            out = out._replace(aux={"hms": hms, "mask": dp[..., 0], "dense": dp[..., 1:]})
+        return out
 
 
 def build_model(cfg: Config, assets: Assets, bbox_dim: int = 0) -> HandNet:
@@ -121,7 +143,9 @@ def _init_params(model: HandNet, cfg: Config, assets: Assets,
     (a normal cut at ±2σ, σ rescaled so the variance is 1/fan_in), biases
     0, norms at identity, BN statistics (0, 1), position embeddings
     normal(0, 0.02), the upsample from the assets' initializer and, under
-    `zero_init_heads`, zero coord/params head weights."""
+    `zero_init_heads`, zero coord/params head weights. The aux heads and
+    the MANO regressor follow the same rules (`zero_init_heads` leaves
+    them as drawn)."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             fan_in = mod.weight[0].numel()

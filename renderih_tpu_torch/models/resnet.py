@@ -125,6 +125,35 @@ class ResNet(nn.Module):
         return feats[::-1]
 
 
+class AuxDecoderHead(nn.Module):
+    """Coarse map -> dense prediction (joint heatmaps, or mask + densepose):
+    a 1x1 conv, then three rounds of bilinear x2 upsample and 3x3 conv, each
+    conv followed by ReLU then BatchNorm, then a 1x1 projection with bias
+    to `out_dim` (`ResNetSimple_decoder`, `models/encoder.py:16-59`; 8² ->
+    64² for a 256² input). The convs are stock convolutions, as in the JAX
+    package (flax `nn.Conv`, not its `Conv3x3`), so B2 runs none of them.
+    Names follow the JAX module's: `flat_conv`, `flat_bn`, `up{i}_conv`,
+    `up{i}_bn`, `final`."""
+
+    def __init__(self, cin: int, out_dim: int):
+        super().__init__()
+        width = 256
+        self.flat_conv = Conv2d(cin, width, 1, bias=False)
+        self.flat_bn = BatchNorm2d(width)
+        for i in range(3):
+            self.add_module(f"up{i}_conv", Conv2d(width, width, 3, padding=1, bias=False))
+            self.add_module(f"up{i}_bn", BatchNorm2d(width))
+        self.final = Conv2d(width, out_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.flat_bn(F.relu(self.flat_conv(x)))
+        for i in range(3):
+            # jax.image.resize(..., "bilinear") at x2: half-pixel centres
+            h = F.interpolate(h, scale_factor=2, mode="bilinear", align_corners=False)
+            h = getattr(self, f"up{i}_bn")(F.relu(getattr(self, f"up{i}_conv")(h)))
+        return self.final(h)
+
+
 class ResNetMid(nn.Module):
     """Pyramid -> per-scale 1x1-projected maps + global feature.
 

@@ -18,7 +18,9 @@ Optimizers (`make_optimizer`), as optax computes them:
     with eps inside the root), which `torch.optim.RMSprop` is not.
 `freeze_upsample` gives the 252->778 upsample weight `requires_grad=False`
 and leaves it out of the optimizer: no update, no weight decay
-(`core/lijun_trainer.py:115-116`).
+(`core/lijun_trainer.py:115-116`). Every other parameter, the aux heads'
+and the MANO regressor's included, is trained, decayed, averaged in the
+EMA and checkpointed alike.
 """
 
 from __future__ import annotations

@@ -4,6 +4,14 @@
 One step is the epoch loop body of `train_gcn`
 (`core/lijun_trainer.py:233-341`): forward in train mode, the graph loss,
 backward, the optimizer update. As in the JAX package:
+  * with `model.with_aux_heads` the aux heads run and `aux_losses` joins
+    the total (terms `aux_*`); a batch without 'hms' gets its heatmap
+    target made on the device from its augmented 2-D joints, at the
+    heads' output size S with sigma max(S/32, 1). Without ImageNet weights
+    this supervision is what lets the encoder train from scratch
+    (`renderih_tpu/train/trainer.py:114-125`);
+  * with `decoder="mano"` and a batch that carries 'pose_left', the
+    MANO-parameter losses join it (terms `mano_*`);
   * `epoch = step // steps_per_epoch` feeds the loss gates;
   * `grad_accum` splits the batch into sequential micro-batches, each
     gradient scaled by 1/accum, BatchNorm statistics chained through them,
@@ -31,9 +39,15 @@ import torch
 from renderih_tpu_torch.assets import Assets, assets_to
 from renderih_tpu_torch.config import Config
 from renderih_tpu_torch.data.pipeline import device_augment
-from renderih_tpu_torch.losses.graph_loss import GraphLossWeights, two_hand_graph_loss
+from renderih_tpu_torch.losses.graph_loss import (
+    GraphLossWeights,
+    aux_losses,
+    two_hand_graph_loss,
+)
+from renderih_tpu_torch.losses.mano_loss import mano_param_losses
 from renderih_tpu_torch.models.model import model_call_kwargs
 from renderih_tpu_torch.ops.dropout import dropout_generator
+from renderih_tpu_torch.ops.heatmap import joint_heatmap_targets
 from renderih_tpu_torch.train.resilience import UpdateFailed
 from renderih_tpu_torch.train.state import TrainState, trainable_parameters
 
@@ -69,12 +83,29 @@ def make_train_step(cfg: Config, assets: Assets, steps_per_epoch: int,
     ema_decay = cfg.train.ema_decay
     nan_guard = cfg.train.nan_guard
     one = torch.ones(1, device=device)
+    with_aux = cfg.model.with_aux_heads
+    with_mano = cfg.model.decoder == "mano"
+    loss = cfg.loss
 
     def loss_and_backward(model, batch, epoch, scale):
-        out = model(batch["img"], **call_kwargs)
+        out = model(batch["img"], aux=with_aux, **call_kwargs)
         total, terms = two_hand_graph_loss(
             out, batch, loss_assets, epoch, weights,
             upsample_weight=model.decoder.unsample_layer.weight, img_size=img_size)
+        if with_aux:
+            if "hms" not in batch:
+                batch = {**batch, "hms": joint_heatmap_targets(
+                    batch["j2d_left"], batch["j2d_right"], out.aux["hms"].shape[1], img_size)}
+            at = aux_losses(out.aux, batch, w_mask=loss.mask, w_dense=loss.dense,
+                            w_hms=loss.hms)
+            total = total + at.pop("total")
+            terms.update({f"aux_{k}": v for k, v in at.items()})
+        if with_mano and "pose_left" in batch:
+            mt = mano_param_losses(out, batch)
+            total = total + (loss.mano_pose * mt["pose"] + loss.mano_shape * mt["shape"]
+                             + mt["shape_reg"])
+            terms.update({f"mano_{k}": v for k, v in mt.items()})
+        terms["total"] = total
         (total if scale == 1.0 else total * scale).backward()
         return {k: v.detach() for k, v in terms.items()}
 

@@ -17,9 +17,10 @@ same sides:
 
 The second run then differentiates the same piece of the piecewise-smooth
 function. Covered are `F.relu` and `F.max_pool2d`, through which every
-`nn.ReLU`/`nn.MaxPool2d` also goes: the only kinks of `HandNet`'s forward.
-The loss's smooth-L1 and the projection have no kink within rounding of
-their inputs.
+`nn.ReLU`/`nn.MaxPool2d` also goes, and `F.hardswish` (kinks at ±3, in
+the MANO-parameter head): the only kinks of `HandNet`'s forward. The
+loss's smooth-L1 and the projection have no kink within rounding of their
+inputs.
 """
 
 from __future__ import annotations
@@ -31,21 +32,27 @@ import torch.nn.functional as F
 
 
 @contextlib.contextmanager
-def _patched(relu, max_pool2d):
-    saved = F.relu, F.max_pool2d
-    F.relu, F.max_pool2d = relu, max_pool2d
+def _patched(relu, max_pool2d, hardswish):
+    saved = F.relu, F.max_pool2d, F.hardswish
+    F.relu, F.max_pool2d, F.hardswish = relu, max_pool2d, hardswish
     try:
         yield
     finally:
-        F.relu, F.max_pool2d = saved
+        F.relu, F.max_pool2d, F.hardswish = saved
+
+
+def _hardswish_piece(x: torch.Tensor) -> torch.Tensor:
+    """Which piece of hard-swish x is on: 0 (x <= -3: 0), 1 (x(x+3)/6), 2 (x >= 3: x)."""
+    return (x > -3).to(torch.int8) + (x >= 3).to(torch.int8)
 
 
 @contextlib.contextmanager
 def record_branches():
     """Yields a list that fills, call by call, with each ReLU's mask
-    (input > 0) and each max-pool's indices, on the device they ran on."""
+    (input > 0), each max-pool's indices and each hard-swish's pieces, on
+    the device they ran on."""
     taken = []
-    relu, max_pool2d = F.relu, F.max_pool2d
+    relu, max_pool2d, hardswish = F.relu, F.max_pool2d, F.hardswish
 
     def rec_relu(x, inplace=False):
         taken.append(("relu", x.detach() > 0))
@@ -58,15 +65,19 @@ def record_branches():
         taken.append(("max_pool2d", idx))
         return (out, idx) if return_indices else out
 
-    with _patched(rec_relu, rec_pool):
+    def rec_hardswish(x, inplace=False):
+        taken.append(("hardswish", _hardswish_piece(x.detach())))
+        return hardswish(x, inplace=inplace)
+
+    with _patched(rec_relu, rec_pool, rec_hardswish):
         yield taken
 
 
 @contextlib.contextmanager
 def take_branches(taken: list):
-    """Runs every ReLU and max-pool on the branches `taken` recorded, in
-    the order recorded: a ReLU multiplies by its mask, a max-pool gathers
-    at its indices. Raises if the calls differ from the record's in kind,
+    """Runs every ReLU, max-pool and hard-swish on the branches `taken`
+    recorded, in the order recorded: a ReLU multiplies by its mask, a
+    max-pool gathers at its indices, a hard-swish takes its recorded piece. Raises if the calls differ from the record's in kind,
     shape or number."""
     calls = iter(taken)
 
@@ -88,7 +99,13 @@ def take_branches(taken: list):
         out = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
         return (out, idx) if return_indices else out
 
-    with _patched(take_relu, take_pool):
+    def take_hardswish(x, inplace=False):
+        piece = take("hardswish", x.shape).to(x.device)
+        out = torch.where(piece == 2, x, x * (x + 3.0) / 6.0)
+        out = torch.where(piece == 0, torch.zeros_like(x), out)
+        return x.copy_(out) if inplace else out
+
+    with _patched(take_relu, take_pool, take_hardswish):
         yield
     if next(calls, None) is not None:
         raise RuntimeError("take_branches: the run made fewer calls than the record")

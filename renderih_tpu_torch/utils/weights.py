@@ -16,6 +16,13 @@ own copy of the inverse mapping in
 
 Each BatchNorm also gets `num_batches_tracked = 0`, so the result loads
 with a strict `load_state_dict`.
+
+The aux heads (`hms_head.*`, `dp_head.*`) and the MANO-parameter head
+(`decoder.param_regressor.*`) have no upstream counterpart:
+`export_reference_checkpoint` maps neither. Their names here are the JAX
+modules': `{flat,up0,up1,up2}_{conv,bn}` and `final` in a head;
+`dense.{0,1}` (flax's `Dense_0`/`Dense_1`), `{pose,shape}_fc{1,2}` in the
+regressor.
 """
 
 from __future__ import annotations
@@ -120,6 +127,14 @@ def _mid(mid, stats, prefix, out):
         i += 1
 
 
+def _param_regressor(reg, prefix, out):
+    """flax `ParamRegressor` subtree -> the port's names under `prefix`."""
+    for i in (0, 1):
+        _linear(reg[f"Dense_{i}"], f"{prefix}.dense.{i}", out)
+    for name in ("pose_fc1", "pose_fc2", "shape_fc1", "shape_fc2"):
+        _linear(reg[name], f"{prefix}.{name}", out)
+
+
 def _decoder(dec, prefix, out):
     """flax `GraphDecoder` subtree -> upstream decoder names under `prefix`."""
     for side in ("left", "right"):
@@ -128,6 +143,8 @@ def _decoder(dec, prefix, out):
     for name in ("coord_head", "avg_head", "params_head"):
         _linear(dec[name], f"{prefix}.{name}", out)
     out[f"{prefix}.unsample_layer.weight"] = _t(dec["upsample_weight"])
+    if "param_regressor" in dec:
+        _param_regressor(dec["param_regressor"], f"{prefix}.param_regressor", out)
     for lname, layer in dec["dual_gcn"].items():
         lp = f"{prefix}.dual_gcn.layers.{lname.split('_')[1]}"
         out[f"{lp}.position_embeddings.weight"] = _t(layer["position_embeddings"])
@@ -140,10 +157,21 @@ def _decoder(dec, prefix, out):
         _inter_attn(layer["inter_attn"], f"{lp}.attn", out)
 
 
+def _aux_head(head, stats, prefix, out):
+    """flax `AuxDecoderHead` subtree -> the port's names under `prefix`."""
+    for name in ("flat", "up0", "up1", "up2"):
+        _conv(head[f"{name}_conv"], f"{prefix}.{name}_conv", out)
+        _bn(head[f"{name}_bn"], stats[f"{name}_bn"], f"{prefix}.{name}_bn", out)
+    _conv(head["final"], f"{prefix}.final", out)
+
+
 def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
     """flax (params, batch_stats) of `HandNet` -> the port's state_dict."""
     out: dict = {}
     _resnet(params["encoder"], batch_stats["encoder"], "encoder.resnet", out)
     _mid(params["mid"], batch_stats["mid"], "mid_model", out)
     _decoder(params["decoder"], "decoder", out)
+    for head in ("hms_head", "dp_head"):
+        if head in params:
+            _aux_head(params[head], batch_stats[head], head, out)
     return out

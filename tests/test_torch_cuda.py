@@ -178,17 +178,10 @@ def test_conv3x3_backward_matches_plain_autograd(cuda, side, c, dtype):
     assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
 
 
-@pytest.mark.parametrize("init_seed,batch_seed", [(0, 0), (2, 5), (7, 1)])
-def test_sgd_step_on_card_matches_cpu(cuda, init_seed, batch_seed):
-    """One SGD step of the small config, f32, TF32 off, dropout 0, batch 4,
-    from `init_model`'s weights and one batch, the CPU taking the card's
-    branches at every ReLU and max-pool (`utils/branches.py`): loss terms
-    within 1e-4 relative, BatchNorm statistics within 1e-5 of each
-    buffer's largest value, every gradient within 2e-2 of its tensor's
-    scale and 95% of the tensors within 3e-3 (`gradient_gaps`), the limits
-    of chip_smoke.py's phase 9, which says where they come from; 26 B2
-    launches (13 forward, 13 dx). Three (init, batch) draws: with the
-    branches shared the check does not depend on the draw."""
+def _sgd_step_card_vs_cpu(cuda, init_seed: int, batch_seed: int, **model):
+    """One SGD step of the small config (with `model` overrides) on the
+    card and on the CPU, the CPU on the card's branches, checked as
+    `test_sgd_step_on_card_matches_cpu` says; returns the card's terms."""
     from renderih_tpu_torch.data.synthetic import synthetic_batch
     from renderih_tpu_torch.models import init_model
     from renderih_tpu_torch.train.state import create_train_state
@@ -197,10 +190,14 @@ def test_sgd_step_on_card_matches_cpu(cuda, init_seed, batch_seed):
 
     cfg = load_config(overrides={
         "model": {"encoder": "resnet18", "img_size": 128, "grid_size": 4,
-                  "graph_layer_num": 2, "dropout": 0.0},
+                  "graph_layer_num": 2, "dropout": 0.0, **model},
         "train": {"precision": "f32", "optimizer": "sgd", "lr": 1.0, "warmup_epochs": 0}})
     assets = make_synthetic_assets(0)
     batch = synthetic_batch(assets, torch.Generator().manual_seed(batch_seed), 4, 128)
+    rng = np.random.default_rng(batch_seed)
+    for h in ("left", "right"):  # MANO labels, read by the mano decoder's loss
+        batch[f"pose_{h}"] = torch.from_numpy((rng.normal(size=(4, 48)) * 0.3).astype(np.float32))
+        batch[f"shape_{h}"] = torch.from_numpy(rng.normal(size=(4, 10)).astype(np.float32))
     out, taken = {}, None
     for dev in (cuda, "cpu"):
         model = init_model(cfg, assets, torch.Generator().manual_seed(init_seed)).to(dev)
@@ -227,6 +224,87 @@ def test_sgd_step_on_card_matches_cpu(cuda, init_seed, batch_seed):
     assert np.mean([e <= 3e-3 for e in gaps.values()]) >= 0.95
     for k, ref in cpu["bn"].items():
         assert (card["bn"][k] - ref).abs().max() <= 1e-5 * ref.abs().max(), k
+    return card["terms"]
+
+
+@pytest.mark.parametrize("init_seed,batch_seed", [(0, 0), (2, 5), (7, 1)])
+def test_sgd_step_on_card_matches_cpu(cuda, init_seed, batch_seed):
+    """One SGD step of the small config, f32, TF32 off, dropout 0, batch 4,
+    from `init_model`'s weights and one batch, the CPU taking the card's
+    branches at every ReLU and max-pool (`utils/branches.py`): loss terms
+    within 1e-4 relative, BatchNorm statistics within 1e-5 of each
+    buffer's largest value, every gradient within 2e-2 of its tensor's
+    scale and 95% of the tensors within 3e-3 (`gradient_gaps`), the limits
+    of chip_smoke.py's phase 9, which says where they come from; 26 B2
+    launches (13 forward, 13 dx). Three (init, batch) draws: with the
+    branches shared the check does not depend on the draw."""
+    _sgd_step_card_vs_cpu(cuda, init_seed, batch_seed)
+
+
+@pytest.mark.parametrize("init_seed,batch_seed", [(0, 0), (7, 1)])
+def test_recipe_sgd_step_on_card_matches_cpu(cuda, init_seed, batch_seed):
+    """The same with the aux heads and the MANO decoder (the heads' convs
+    are stock convolutions: still 26 B2 launches; the hard-swish branches
+    shared too)."""
+    terms = _sgd_step_card_vs_cpu(cuda, init_seed, batch_seed, with_aux_heads=True,
+                                  decoder="mano")
+    assert terms["aux_hms"] > 0 and terms["mano_pose"] > 0
+
+
+@pytest.mark.parametrize("out_dim", [42, 7])
+def test_aux_head_on_card_matches_cpu(cuda, out_dim):
+    """`AuxDecoderHead` in train mode on resnet18's C5 at 128² (4, 512,
+    4, 4), f32: outputs within 1e-4 of their largest |value| and the
+    gradients of its parameters and input under phase 9's limits, the CPU
+    on the card's ReLU branches; no B2 launch (stock convolutions)."""
+    from renderih_tpu_torch.models.resnet import AuxDecoderHead
+    from renderih_tpu_torch.utils.branches import gradient_gaps, record_branches, take_branches
+
+    torch.manual_seed(out_dim)
+    head = AuxDecoderHead(512, out_dim).train()
+    x = torch.randn(4, 512, 4, 4).abs()  # a post-ReLU map
+    w = torch.randn(4, out_dim, 32, 32)
+    out, taken = {}, None
+    for dev in (cuda, "cpu"):
+        h = AuxDecoderHead(512, out_dim).train().to(dev)
+        h.load_state_dict(head.state_dict())
+        xi = x.to(dev).requires_grad_(True)
+        n = conv3x3.launches.value
+        with record_branches() if taken is None else take_branches(taken) as rec:
+            y = h(xi)
+        (y * w.to(dev)).sum().backward()
+        taken = rec if taken is None else taken
+        out[str(dev)] = (y.detach().cpu(), dict(
+            {k: p.grad.cpu() for k, p in h.named_parameters()}, input=xi.grad.cpu()),
+            conv3x3.launches.value - n)
+    (y_card, g_card, n_card), (y_cpu, g_cpu, _) = out[str(cuda)], out["cpu"]
+    assert y_card.shape == (4, out_dim, 32, 32) and n_card == 0
+    assert (y_card - y_cpu).abs().max() <= 1e-4 * y_cpu.abs().max()
+    gaps = gradient_gaps(g_card, g_cpu)
+    assert max(gaps.values()) <= 2e-2 and np.mean([e <= 3e-3 for e in gaps.values()]) >= 0.95
+
+
+def test_param_regressor_on_card_matches_cpu(cuda):
+    """`ParamRegressor` forward and input gradient, f32, within 1e-4 of
+    their largest |value|, the CPU on the card's hard-swish pieces."""
+    from renderih_tpu_torch.models.decoder import ParamRegressor
+    from renderih_tpu_torch.utils.branches import record_branches, take_branches
+
+    torch.manual_seed(0)
+    reg = ParamRegressor()
+    verts = torch.randn(8, 778, 3) * 3.0  # hard-swish inputs on all three pieces
+    out, taken = {}, None
+    for dev in (cuda, "cpu"):
+        r = ParamRegressor().to(dev)
+        r.load_state_dict(reg.state_dict())
+        v = verts.to(dev).requires_grad_(True)
+        with record_branches() if taken is None else take_branches(taken) as rec:
+            pose6d, shape = r(v)
+        (pose6d.square().sum() + shape.sum()).backward()
+        taken = rec if taken is None else taken
+        out[str(dev)] = [t.detach().cpu() for t in (pose6d, shape, v.grad)]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
 def test_engine_on_card_matches_cpu_and_launches_the_kernels(cuda):

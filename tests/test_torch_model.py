@@ -177,11 +177,19 @@ def test_batching_server_matches_predict(small):
 
 @pytest.mark.parametrize("override", [
     {"encoder": "hrnet_w32"}, {"paired_lr": True}, {"use_cheby": True},
-    {"decoder": "mano"}, {"with_aux_heads": True}])
+    {"encoder": "vit_base"}, {"encoder": "vit_large"}])
 def test_unported_variants_raise(small, override):
     cfg = load_config(overrides={"model": override})
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(cfg, small["assets"])
+
+
+@pytest.mark.parametrize("override", [{"decoder": "mano"}, {"with_aux_heads": True}])
+def test_ported_variants_build(small, override):
+    cfg = load_config(overrides={**SMALL, "model": {**SMALL["model"], **override}})
+    model = build_model(cfg, small["assets"])
+    assert (model.decoder.param_regressor is not None) == ("decoder" in override)
+    assert (model.hms_head is not None) == ("with_aux_heads" in override)
 
 
 def test_config_matches_jax_config():

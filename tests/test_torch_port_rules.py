@@ -12,6 +12,7 @@ import torch
 from renderih_tpu_torch.apps import eval_interhand
 from renderih_tpu_torch.config import Config
 from renderih_tpu_torch.eval import evaluator
+from renderih_tpu_torch import serve_http
 from renderih_tpu_torch.serve import InferenceEngine, resolve_device
 from renderih_tpu_torch.tools import synth_gen
 
@@ -48,6 +49,7 @@ def test_importing_the_port_loads_no_jax():
             "renderih_tpu_torch.render.renderer, renderih_tpu_torch.render.backgrounds, "
             "renderih_tpu_torch.apps.train, renderih_tpu_torch.train.trainer, "
             "renderih_tpu_torch.eval.evaluator, renderih_tpu_torch.apps.eval_interhand, "
+            "renderih_tpu_torch.serve_http, renderih_tpu_torch.losses.mano_loss, "
             "renderih_tpu_torch.apps.eval_singlehand, renderih_tpu_torch.apps.eval_tzionas; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
             "assert not bad, bad")
@@ -88,3 +90,12 @@ def test_eval_without_device_runs_on_the_card_or_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eval_interhand.main(["--synthetic"])
     assert not list(tmp_path.iterdir())
+
+
+def test_serve_http_without_device_runs_on_the_card_or_raises():
+    """`python -m renderih_tpu_torch.serve_http` (no --device) serves from
+    the card; without one it raises before binding a port."""
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_http.main(["--host", "127.0.0.1", "--port", "0"])
