@@ -31,9 +31,14 @@ line:
    clock per SM at 1.98 GHz). B1's f32 lines also print the bound of PR
    1-3's yardstick, its FLOPs over the CUDA-core f32 peak.
 3. The flagship path: `Config()` (ResNet-50, bf16 encoder, f32 decoder)
-   on synthetic assets with seeded random weights, served through
-   `InferenceEngine` + `BatchingServer` (64 single-image requests) and one
-   `predict` of 256 images. The launch counters must rise by exactly 13
+   on synthetic assets with seeded random weights. First B2 in bf16 (on
+   `wgmma`) and B1 in f32 at every shape of a forward at each of the
+   engine's buckets (1, 8, 32, 128) against their plain versions on
+   random inputs, at phase 2's tolerances (below 4 images an 8² map fills
+   part of B2's 4-image tile); `serve_phase`, which every served path
+   runs. Then served through `InferenceEngine` + `BatchingServer` (64
+   single-image requests), one `predict` at each smaller bucket and three
+   of 256 images. The launch counters must rise by exactly 13
    (B2) and 24 (B1) per forward, and every B2 launch must take the
    `wgmma` route. Then, in f32 with TF32 off, the card's
    outputs are held against the same engine run on the CPU (the plain
@@ -149,11 +154,9 @@ line:
    hard-swish branches), with phase 9's limits over every parameter, the
    heads' included; a planted fault, the heatmap term's weight 10% off,
    must land outside them; the CPU on its own branches is printed.
-14. The engine's buckets (1, 8, 32, 128), which phases 14 and 15 serve
-   at. First B2 in bf16 (on `wgmma`) and B1 in f32 at every shape of a
-   forward at each bucket against their plain versions on random inputs,
-   at phase 2's tolerances (below 4 images an 8² map fills part of B2's
-   4-image tile). Then every B2 and B1 call of one `Config()` forward
+14. The engine's buckets (1, 8, 32, 128), which phases 3, 14 and 15
+   serve at (phase 3 holds the kernels at each). Every B2 and B1 call of
+   one `Config()` forward
    (seed-0 weights) at batch 128, on its own activations: against its
    plain version at those tolerances, and on its first 1, 8 and 32
    images equal bit for bit to the whole batch's result (each kernel's
@@ -182,10 +185,41 @@ line:
    single response against one predict of all 64, which runs another
    bucket: phase 14 traces that gap to cuDNN). Prints requests/s and p50/p99 latency of the last wave, with
    the card's name and power limit.
-16. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+16. The ViT path, `configs/vitpose_base.yaml` as it is (ViT-B/16, decoder
+   mano, bf16 encoder, f32 decoder, batch 32). First B1 at its new shapes
+   (the blocks' N = M = 256, 12 heads, D = 64; the pooled-KV block's
+   N = 64, M = 256, 8 heads, D = 96; and `vit_large`'s 16-head D = 64 and
+   D = 128) in f32 and bf16 at batch 256, held and timed as in phase 2.
+   Every shape and launch count of a path comes from its model built
+   (`kernel_shapes`: the model run on the meta device, its kernels' call
+   sites recording). Then `InferenceEngine` on the config as phase 3
+   (B1 held at every shape of a forward at each bucket, in the dtype the
+   path gives it, then one predict at each bucket below 128 and three of
+   256 images, two forwards of 128 each); exactly 37 B1 launches
+   a forward (12 blocks, the pooled-KV block, 24 in the decoder) and no
+   B2; images/s. Card vs CPU in f32 (TF32 off) within `PATH_RTOL`.
+   `apps.train` on the config, `--synthetic --steps 10`: every term finite
+   (the mano terms among them), no kernel launch (the ViT has no B2, and
+   training keeps the plain attention); images/s. One card-vs-CPU f32 SGD
+   step as phase 9 (one seed pair; the CPU on the card's ReLU and
+   hard-swish branches; GELU has none). Then `vit_large` served at one
+   bucket of 32 as phase 3 (B1 held at every shape of its forward at 32;
+   49 B1 launches a forward).
+17. The HRNet path, `Config()` with `encoder: hrnet_w32` (bf16 encoder,
+   batch 64): B2 at its five shapes (64²x32, 32²x64, 16²x128, 8²x256 and
+   64²x64; Cout = 32 takes `wgmma` with a 64-wide channel tile half
+   filled) in bf16 and f32 at batch 256 as phase 2, and forward and dx in
+   bf16 at batch 64 as phase 7; served as phase 3 (B2 in bf16 and B1 in
+   f32 held at every shape of a forward at each bucket, 1 to 128), 256
+   images: exactly 216 B2 launches a forward, all `wgmma`, and 24 B1;
+   card vs CPU in f32;
+   `apps.train --synthetic --steps 6` at batch 64: 432 B2 launches a step,
+   all `wgmma`, no B1, every term finite; images/s of both.
+18. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
    batch 256 in the flagship's dtypes, B2 per training step at batch 64
-   and per recipe training step at batch 128, B3 per refined sample), and
-   as the last line `{"ok": true, "device": {...}}`.
+   and per recipe training step at batch 128, B3 per refined sample; B1
+   per ViT-B forward in its dtypes, B2 per HRNet-W32 forward and training
+   step), and as the last line `{"ok": true, "device": {...}}`.
 
 All f32 comparisons run with TF32 off in cuDNN and cuBLAS
 (`torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -214,7 +248,7 @@ SDF_FLOP_PER_PAIR = 80  # the Pallas kernel's cost estimate (sdf_pallas.py:164)
 SYNTH_N, SYNTH_ITERS, SYNTH_GRID = 32, 60, 16
 REFINE_SCHEDULE = ((1.0, 1.0, 3), (0.1, 15.0, 3), (30.0, 0.1, 3), (1.0, 5.0, 3))
 REFINE_LR = 1e-2
-DEVICE = "cuda"  # the card; a CPU rehearsal of phases 4-6 and 8-10 may set "cpu"
+DEVICE = "cuda"  # the card; a CPU rehearsal of phases 2, 4-6, 8-10 and 16-17 may set "cpu"
 TRAIN_BATCH = 64  # the flagship's batch a card
 TRAIN_SYNTH_N = 256
 TRAIN_STEPS = 21
@@ -235,6 +269,11 @@ RECIPE_PARITY_SEEDS = ((0, 2),)  # (init, batch) seeds of phase 13
 AUX_SERVE_N = 32  # one bucket
 AUX_SERVE_RTOL = 1e-6  # engines with and without the aux heads: the same computation
 HTTP_REQUESTS, HTTP_BATCH, HTTP_WAVES = 64, 32, 3
+VIT_YAML = "configs/vitpose_base.yaml"  # phase 16: ViT-B/16, decoder mano, bf16, batch 32
+VIT_TRAIN_STEPS = 10
+VIT_LARGE_BUCKET = 32
+HRNET_ENCODER = "hrnet_w32"  # phase 17, on Config()'s decoder, bf16, batch 64
+HRNET_TRAIN_STEPS = 6
 
 
 def _gpu_line() -> str:
@@ -365,31 +404,60 @@ def _routes() -> dict:
     return {name: c.value for name, c in conv3x3.routes.items()}
 
 
-def conv_shapes(cfg) -> list:
-    """(H=W, C, launches per forward) of every stride-1 3x3 conv class of
-    the ResNet trunk at this config's image size."""
-    from renderih_tpu_torch.models.resnet import _STAGES
-
-    kind, counts = _STAGES[cfg.model.encoder]
-    per_block = 1 if kind == "bottleneck" else 2
-    out = []
-    for stage, n_blocks in enumerate(counts):
-        side = cfg.model.img_size // 4 // 2**stage
-        n = n_blocks * per_block - (1 if stage > 0 else 0)
-        out.append((side, 64 * 2**stage, n))
-    return out
+_SHAPES: dict = {}
 
 
-def mha_shapes(cfg, verts_nums) -> list:
-    """(N = M, D, launches per forward) of every attention core of the
-    decoder: per stage, 2 hands x (grid SelfAttn + concat SelfAttn) and
-    InterAttn's 2 self + 2 cross."""
-    m = cfg.model
-    heads, grid = m.num_attn_heads, m.grid_size ** 2
-    out = []
-    for v, d_verts, d_grid in zip(verts_nums, m.gcn_out_dims, m.img_dims):
-        out += [(grid, d_grid // heads, 2), (v + grid, d_verts // heads, 2),
-                (v, d_verts // heads, 4)]
+def kernel_shapes(cfg, assets) -> dict:
+    """Every B2 and B1 call of one forward of `cfg`'s model, from the model
+    built: `HandNet` on the meta device (no weights, no arithmetic), its
+    kernels' call sites recording. {"conv3x3": [(side, cin, cout, dtype,
+    calls a forward)], "fused_mha": [(N, M, heads, D, dtype, calls)]}, dtype
+    the one the path runs the kernel in."""
+    import collections
+    from unittest import mock
+
+    import torch
+
+    from renderih_tpu_torch.kernels.conv3x3 import conv3x3_reference
+    from renderih_tpu_torch.kernels.fused_attention import mha_reference
+    from renderih_tpu_torch.models import attention, build_model, model_call_kwargs, resnet
+
+    key = repr((cfg.model, cfg.train.precision))
+    if key not in _SHAPES:
+        calls = {"conv3x3": collections.Counter(), "fused_mha": collections.Counter()}
+        dname = lambda t: str(t.dtype).split(".")[1]
+
+        def conv(x, w):
+            calls["conv3x3"][(x.shape[1], x.shape[3], w.shape[3], dname(x))] += 1
+            return conv3x3_reference(x, w)
+
+        def mha(q, k, v):
+            calls["fused_mha"][(q.shape[1], k.shape[1], q.shape[2], q.shape[3], dname(q))] += 1
+            return mha_reference(q, k, v)
+
+        with torch.device("meta"):
+            model = build_model(cfg, assets).eval()
+        size = cfg.model.img_size
+        with mock.patch.object(resnet, "conv3x3_same", conv), \
+                mock.patch.object(attention, "fused_mha", mha), torch.no_grad():
+            model(torch.zeros(1, size, size, 3, device="meta"),
+                  **model_call_kwargs(assets, "meta"))
+        _SHAPES[key] = {name: [(*k, n) for k, n in sorted(c.items())]
+                        for name, c in calls.items()}
+    return _SHAPES[key]
+
+
+def per_forward(cfg, assets) -> dict:
+    """B2 and B1 launches a forward of `cfg`'s model."""
+    return {name: sum(s[-1] for s in shapes)
+            for name, shapes in kernel_shapes(cfg, assets).items()}
+
+
+def shape_counts(cfg, assets, kernel: str) -> dict:
+    """{shape without dtype: calls a forward} of one kernel."""
+    out: dict = {}
+    for *shape, _, n in kernel_shapes(cfg, assets)[kernel]:
+        out[tuple(shape)] = out.get(tuple(shape), 0) + n
     return out
 
 
@@ -426,55 +494,65 @@ def hold_mha(q, k, v, label: str):
     return out, _check(label, out, ref, *tol)
 
 
-def hold_path_kernels(cfg, verts_nums, batch: int, seed: int) -> dict:
-    """B2 in bf16 and B1 in f32, the flagship's dtypes, at every shape
-    of a forward at `batch`, against their plain versions on random
-    inputs: the largest max|Δ| of each."""
+def hold_path_kernels(cfg, assets, batch: int, seed: int) -> dict:
+    """B2 and B1 at every shape of a forward of `cfg` at `batch`, each in
+    the dtype its path runs it in (the flagship: B2 bf16, B1 f32), against
+    their plain versions on random inputs: the largest max|Δ| of each."""
     import torch
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(seed)
     worst = {"conv3x3": 0.0, "fused_mha": 0.0}
-    for side, c, _ in conv_shapes(cfg):
-        x = torch.randn(batch, side, side, c, device=dev, generator=g).to(torch.bfloat16)
-        w = (torch.randn(3, 3, c, c, device=dev, generator=g) / (9 * c) ** 0.5).to(torch.bfloat16)
-        err = hold_conv(x, w, f"conv3x3 bfloat16 batch {batch} {side}²x{c}")[1]
+    shapes = kernel_shapes(cfg, assets)
+    for side, cin, cout, dname, _ in shapes["conv3x3"]:
+        dtype = getattr(torch, dname)
+        x = torch.randn(batch, side, side, cin, device=dev, generator=g).to(dtype)
+        w = (torch.randn(3, 3, cin, cout, device=dev, generator=g) / (9 * cin) ** 0.5).to(dtype)
+        err = hold_conv(x, w, f"conv3x3 {dname} batch {batch} {side}²x{cin}->{cout}")[1]
         worst["conv3x3"] = max(worst["conv3x3"], err)
         del x, w
-    heads = cfg.model.num_attn_heads
-    for n, d, _ in mha_shapes(cfg, verts_nums):
-        q, k, v = (torch.randn(batch, n, heads, d, device=dev, generator=g) for _ in range(3))
-        err = hold_mha(q, k, v, f"fused_mha float32 batch {batch} N={n} D={d}")[1]
+    for n, m, heads, d, dname, _ in shapes["fused_mha"]:
+        dtype = getattr(torch, dname)
+        q = torch.randn(batch, n, heads, d, device=dev, generator=g).to(dtype)
+        k, v = (torch.randn(batch, m, heads, d, device=dev, generator=g).to(dtype)
+                for _ in range(2))
+        err = hold_mha(q, k, v, f"fused_mha {dname} batch {batch} N={n} M={m} H={heads} D={d}")[1]
         worst["fused_mha"] = max(worst["fused_mha"], err)
         del q, k, v
     torch.cuda.empty_cache()
     return worst
 
 
-def kernel_phase(cfg, verts_nums) -> dict:
+def kernel_phase(cfg, assets, skip: dict | None = None, label: str = "flagship") -> dict:
+    """B2 and B1 at every shape of a forward of `cfg` at batch `BATCH`, in
+    bf16 and f32, held and timed (the module docstring, phase 2); shapes
+    in `skip` ({kernel: set of shapes}, measured already) are left out."""
     import torch
     import torch.nn.functional as F
 
     from renderih_tpu_torch.kernels import conv3x3, fused_attention
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
     rows = {"conv3x3": [], "fused_mha": []}
+    skip = skip or {}
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         atol, rtol = CONV_TOL[dname]
-        for side, c, per_fwd in conv_shapes(cfg):
-            x = torch.randn(BATCH, side, side, c, device=dev, generator=g).to(dtype)
-            w = (torch.randn(3, 3, c, c, device=dev, generator=g)
-                 / (9 * c) ** 0.5).to(dtype)
-            y, err, route = hold_conv(x, w, f"conv3x3 {dname} {side}²x{c}")
+        for (side, cin, cout), per_fwd in shape_counts(cfg, assets, "conv3x3").items():
+            if (side, cin, cout) in skip.get("conv3x3", ()):
+                continue
+            x = torch.randn(BATCH, side, side, cin, device=dev, generator=g).to(dtype)
+            w = (torch.randn(3, 3, cin, cout, device=dev, generator=g)
+                 / (9 * cin) ** 0.5).to(dtype)
+            y, err, route = hold_conv(x, w, f"conv3x3 {dname} {side}²x{cin}->{cout}")
             x_lib = x.permute(0, 3, 1, 2)  # NCHW view, channels_last
             w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             n_bytes = (x.numel() + w.numel() + y.numel()) * x.element_size()
-            flops = 2 * BATCH * side * side * c * c * 9
+            flops = 2 * BATCH * side * side * cin * cout * 9
             row = dict(
-                dtype=dname, shape=[BATCH, side, side, c, c], launches_per_forward=per_fwd,
+                dtype=dname, shape=[BATCH, side, side, cin, cout], launches_per_forward=per_fwd,
                 route=route,
                 max_abs_err=err, atol=atol, rtol=rtol,
                 ms=_time_ms(lambda: conv3x3.conv3x3_same(x, w)),
@@ -482,30 +560,32 @@ def kernel_phase(cfg, verts_nums) -> dict:
                 library_ms=_time_ms(lambda: F.conv2d(x_lib, w_lib, padding=1)),
                 **_bound(n_bytes, flops, dname))
             rows["conv3x3"].append(row)
-            print(f"[B2] conv3x3 {dname} x({BATCH},{side},{side},{c}) w(3,3,{c},{c}): "
+            print(f"[B2] conv3x3 {dname} x({BATCH},{side},{side},{cin}) w(3,3,{cin},{cout}): "
                   f"max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g})  "
                   f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
                   f"({row['bound_by']})  launches/forward={per_fwd} route={route}", flush=True)
             del x, w, y, x_lib, w_lib
 
-    heads = cfg.model.num_attn_heads
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         f32 = dtype == torch.float32
         atol, rtol = MHA_TOL if f32 else CONV_TOL[dname]
-        for n, d, per_fwd in mha_shapes(cfg, verts_nums):
-            q, k, v = (torch.randn(BATCH, n, heads, d, device=dev, generator=g).to(dtype)
-                       for _ in range(3))
-            out, err = hold_mha(q, k, v, f"fused_mha {dname} N={n} D={d}")
+        for (n, m, heads, d), per_fwd in shape_counts(cfg, assets, "fused_mha").items():
+            if (n, m, heads, d) in skip.get("fused_mha", ()):
+                continue
+            q = torch.randn(BATCH, n, heads, d, device=dev, generator=g).to(dtype)
+            k, v = (torch.randn(BATCH, m, heads, d, device=dev, generator=g).to(dtype)
+                    for _ in range(2))
+            out, err = hold_mha(q, k, v, f"fused_mha {dname} N={n} M={m} H={heads} D={d}")
             ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
-            flops = 4 * BATCH * heads * n * n * d
+            flops = 4 * BATCH * heads * n * m * d
             # tensor cores: TF32 (3xTF32 runs three passes of it) or bf16
             bound = _bound(n_bytes, flops, "tfloat32" if f32 else dname,
-                           exps=BATCH * heads * n * n)
+                           exps=BATCH * heads * n * m)
             row = dict(
-                dtype=dname, shape=[BATCH, n, heads, d],
+                dtype=dname, shape=[BATCH, n, m, heads, d],
                 launches_per_forward=per_fwd, max_abs_err=err, atol=atol, rtol=rtol,
                 ms=_graph_ms(lambda: fused_attention.fused_mha(q, k, v)),
                 eager_ms=_time_ms(lambda: fused_attention.fused_mha(q, k, v)),
@@ -517,7 +597,7 @@ def kernel_phase(cfg, verts_nums) -> dict:
                 row["cuda_core_bound_ms"] = _bound(n_bytes, flops, "float32")["bound_ms"]
                 old = f" cuda_core_bound_ms={row['cuda_core_bound_ms']:.4f}"
             rows["fused_mha"].append(row)
-            print(f"[B1] fused_mha {dname} q,k,v({BATCH},{n},{heads},{d}): "
+            print(f"[B1] fused_mha {dname} q({BATCH},{n},{heads},{d}) k,v({BATCH},{m},{heads},{d}): "
                   f"max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g})  "
                   f"kernel_ms={row['ms']:.4f} (eager {row['eager_ms']:.4f}) "
                   f"plain_ms={row['plain_ms']:.4f} "
@@ -527,95 +607,15 @@ def kernel_phase(cfg, verts_nums) -> dict:
                   f"launches/forward={per_fwd}", flush=True)
             del q, k, v, out, ql, kl, vl
         fwd = [r for r in rows["fused_mha"] if r["dtype"] == dname]
+        if not fwd:
+            continue
         total = {key: sum(r[key] * r["launches_per_forward"] for r in fwd)
                  for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
                              "cuda_core_bound_ms") if key in fwd[0]}
-        print(f"[B1] fused_mha {dname} per flagship forward ({sum(r['launches_per_forward'] for r in fwd)} "
-              f"launches): " + ", ".join(f"{key} {val:.4f}" for key, val in total.items()),
-              flush=True)
+        print(f"[B1] fused_mha {dname} per {label} forward, these shapes "
+              f"({sum(r['launches_per_forward'] for r in fwd)} launches): "
+              + ", ".join(f"{key} {val:.4f}" for key, val in total.items()), flush=True)
     return rows
-
-
-def main_path_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
-    import numpy as np
-    import torch
-
-    from renderih_tpu_torch.kernels import conv3x3, fused_attention, sdf
-    from renderih_tpu_torch.serve import BatchingServer, InferenceEngine
-
-    size = cfg.model.img_size
-    rng = np.random.default_rng(0)
-    images = rng.integers(0, 256, (BATCH, size, size, 3), dtype=np.uint8)
-
-    engine = InferenceEngine(cfg, assets=assets, device="cuda", seed=0)
-    engine.warmup()
-    forwards = [0]
-    hook = engine.model.register_forward_pre_hook(
-        lambda mod, args: forwards.__setitem__(0, forwards[0] + 1))
-
-    for counter in (conv3x3.launches, fused_attention.launches, sdf.launches,
-                    *conv3x3.routes.values()):
-        counter.reset()
-    server = BatchingServer(engine)
-    try:
-        futs = [server.submit(images[i]) for i in range(N_REQUESTS)]
-        served = [f.result(timeout=600) for f in futs]
-    finally:
-        server.close()
-    n_served_batches = forwards[0]
-    rates = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = engine.predict(images)
-        rates.append(BATCH / (time.perf_counter() - t0))
-    launches = {"conv3x3": conv3x3.launches.value,
-                "fused_mha": fused_attention.launches.value,
-                "sdf_grid": sdf.launches.value}
-    routes = _routes()
-    hook.remove()
-
-    n_fwd = forwards[0]
-    per_fwd = {"conv3x3": sum(n for _, _, n in conv_shapes(cfg)),  # 13
-               "fused_mha": sum(n for _, _, n in mha_shapes(  # 24
-                   cfg, assets.left.verts_nums)),
-               "sdf_grid": 0}
-    want = {k: n * n_fwd for k, n in per_fwd.items()}
-    want_routes = {"simt": 0, "wgmma": want["conv3x3"]}
-    print(f"[path] {N_REQUESTS} requests in {n_served_batches} served batches + "
-          f"predict({BATCH}): {n_fwd} forwards, launches {launches} "
-          f"(expected {want}), B2 routes {routes} (expected {want_routes})", flush=True)
-    if n_fwd == 0 or launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
-    if routes != want_routes:
-        raise AssertionError(f"B2 routes {routes} != {want_routes}")
-    for i, res in enumerate(served):
-        if res["verts3d_left"].shape != (778, 3):
-            raise AssertionError(f"request {i}: shape {res['verts3d_left'].shape}")
-    for key, val in out.items():
-        exp = {"verts3d": (BATCH, 778, 3), "verts2d": (BATCH, 778, 2),
-               "scale": (BATCH,), "trans2d": (BATCH, 2)}[key.rsplit("_", 1)[0]]
-        if val.shape != exp or not np.isfinite(val).all():
-            raise AssertionError(f"{key}: shape {val.shape} (want {exp}) or non-finite")
-    # a served request against the same image in the big batch: reported,
-    # not asserted (cuDNN may pick other algorithms at other batch sizes)
-    ref = out["verts3d_left"][0]
-    d = np.abs(served[0]["verts3d_left"] - ref).max() / max(np.abs(ref).max(), 1e-6)
-    rate = sorted(rates)[1]
-    print(f"[path] flagship bf16: {rate:.1f} images/s (median of 3 predicts of "
-          f"{BATCH}: {', '.join(f'{r:.1f}' for r in rates)}; host upload and copy "
-          f"back included) on {gpu_line}; served-vs-batched rel max|Δ| {d:.2e}",
-          flush=True)
-    result = {"launches": launches, "conv3x3_routes": routes, "forwards": n_fwd,
-              "images_per_s": rate,
-              "images_per_s_runs": rates}
-    if profile:
-        batch = images[:engine.buckets[-1]]
-        result["profile"] = profile_phase(f"predict({len(batch)})",
-                                          lambda: engine.predict(batch))
-    del engine
-    torch.cuda.empty_cache()
-    return result
 
 
 def profile_phase(label: str, fn, top: int = 30) -> dict:
@@ -657,7 +657,7 @@ def profile_phase(label: str, fn, top: int = 30) -> dict:
             "kernels": [dict(ms=ms, count=c, name=n) for ms, c, n in rows]}
 
 
-def parity_phase(cfg, assets) -> dict:
+def parity_phase(cfg, assets, tag: str = "parity") -> dict:
     import copy
 
     import numpy as np
@@ -670,7 +670,7 @@ def parity_phase(cfg, assets) -> dict:
     rng = np.random.default_rng(1)
     size = cfg.model.img_size
     images = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
-    gpu = InferenceEngine(cfg32, assets=assets, device="cuda", buckets=(n,), seed=0)
+    gpu = InferenceEngine(cfg32, assets=assets, device=DEVICE, buckets=(n,), seed=0)
     out_gpu = gpu.predict(images)
     cpu = InferenceEngine(cfg32, assets=assets, device="cpu", buckets=(n,), seed=0)
     out_cpu = cpu.predict(images)
@@ -681,7 +681,8 @@ def parity_phase(cfg, assets) -> dict:
         errs[key] = rel
         if not rel <= PATH_RTOL:
             raise AssertionError(f"{key}: card vs CPU rel max|Δ| {rel:.3e} > {PATH_RTOL:g}")
-    print(f"[parity] f32, TF32 off, {n} images: card (kernels) vs CPU (plain), "
+    print(f"[{tag}] {cfg.model.encoder} f32, TF32 off, {n} images: card (kernels) vs CPU "
+          f"(plain), "
           f"max|Δ| / max|ref| per output: "
           + ", ".join(f"{k}={v:.2e}" for k, v in errs.items())
           + f" (limit {PATH_RTOL:g})", flush=True)
@@ -940,23 +941,25 @@ def refine_parity_phase(assets) -> dict:
                 params_max_abs_err=param_err, total_rel=total_rel, term_err=term_err)
 
 
-def conv_backward_phase(cfg, batch: int = TRAIN_BATCH, dtypes: tuple = ("bfloat16", "float32"),
-                        seed: int = 1) -> list:
-    """B2's backward at every training shape of `batch`, in `dtypes` (see
-    the module docstring, phase 7; phase 11 at the recipe's batch)."""
+def conv_backward_phase(cfg, assets, batch: int = TRAIN_BATCH,
+                        dtypes: tuple = ("bfloat16", "float32"), seed: int = 1) -> list:
+    """B2's backward at every training shape of `cfg` at `batch`, in
+    `dtypes` (see the module docstring, phase 7; phase 11 at the recipe's
+    batch, phase 17 on HRNet-W32). Every B2 site maps C channels to C."""
     import torch
     import torch.nn.functional as F
 
     from renderih_tpu_torch.kernels import conv3x3
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = []
     for dtype in (getattr(torch, d) for d in dtypes):
         dname = str(dtype).split(".")[1]
         atol, rtol = CONV_TOL[dname]
         route = "wgmma" if dtype == torch.bfloat16 else "simt"
-        for side, c, per_fwd in conv_shapes(cfg):
+        for (side, c, cout), per_fwd in shape_counts(cfg, assets, "conv3x3").items():
+            assert c == cout, (side, c, cout)
             shape = (batch, side, side, c)
             x = torch.randn(*shape, device=dev, generator=g).to(dtype)
             w = (torch.randn(3, 3, c, c, device=dev, generator=g) / (9 * c) ** 0.5).to(dtype)
@@ -1016,7 +1019,9 @@ def conv_backward_phase(cfg, batch: int = TRAIN_BATCH, dtypes: tuple = ("bfloat1
             del x, w, gy, xk, wk, xp, wp, dx_lib
         per_step = [r for r in rows if r["dtype"] == dname]
         tot = lambda key: sum(r[key] * r["launches_per_step"] / 2 for r in per_step)
-        print(f"[B2-bwd] {dname} per training step (13 forward + 13 dx launches), device ms: "
+        n_fwd = sum(r["launches_per_step"] for r in per_step) // 2
+        print(f"[B2-bwd] {dname} per training step ({n_fwd} forward + {n_fwd} dx launches), "
+              f"device ms: "
               f"B2 {tot('fwd_ms') + tot('dx_ms'):.3f} (fwd {tot('fwd_ms'):.3f}, dx "
               f"{tot('dx_ms'):.3f}), plain {tot('plain_fwd_ms') + tot('plain_dx_ms'):.3f}, "
               f"cuDNN {tot('library_fwd_ms') + tot('library_dx_ms'):.3f}, bound "
@@ -1088,8 +1093,7 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     from renderih_tpu_torch.train.state import create_train_state
     from renderih_tpu_torch.train.trainer import make_train_step
 
-    per_fwd_b2 = sum(n for _, _, n in conv_shapes(cfg))  # 13
-    per_fwd_b1 = sum(n for _, _, n in mha_shapes(cfg, assets.left.verts_nums))  # 24
+    per_fwd_b2, per_fwd_b1 = per_forward(cfg, assets).values()  # 13, 24
     per_step = 2 * per_fwd_b2  # 13 forward + 13 dx
     common = ["--synthetic", "--synth_n", str(TRAIN_SYNTH_N), "--device", DEVICE,
               "--steps", str(TRAIN_STEPS)]
@@ -1295,15 +1299,16 @@ def train_parity_phase(cfg, assets, seeds=TRAIN_PARITY_SEEDS, tag="train-parity"
         term_err = max(abs(card["terms"][k] - v) / max(abs(v), 1e-12)
                        for k, v in cpu["terms"].items())
         gaps = gradient_gaps(card["grads"], cpu["grads"])
-        bn_err = max(float((card["bn"][k] - v).abs().max() / v.abs().max())
-                     for k, v in cpu["bn"].items())
+        bn_err = max((float((card["bn"][k] - v).abs().max() / v.abs().max())
+                      for k, v in cpu["bn"].items()), default=0.0)  # none in a ViT
         row = dict(init_seed=init_seed, batch_seed=batch_seed, branches=len(taken),
                    terms_rel=term_err, grad_rel=gaps, grad_share=share(gaps), bn_rel=bn_err)
         print(f"[{tag}] one SGD step, {cfg.model.encoder} at {cfg.model.img_size}² (aux heads "
               f"{'on' if cfg.model.with_aux_heads else 'off'}, decoder {cfg.model.decoder}) in "
               f"f32, TF32 off, dropout 0, batch "
-              f"{PARITY_BATCH}, init_model seed {init_seed} with the encoder's BatchNorm biases "
-              f"+{BN_BIAS_SHIFT:g}, batch seed {batch_seed}, the CPU "
+              f"{PARITY_BATCH}, init_model seed {init_seed}"
+              + (f" with the encoder's BatchNorm biases +{BN_BIAS_SHIFT:g}" if cpu["bn"] else "")
+              + f", batch seed {batch_seed}, the CPU "
               f"on the card's branches ({len(taken)} ReLU, max-pool and hard-swish calls): loss terms rel "
               f"max|Δ| {term_err:.2e} (limit 1e-4); gradients, max|Δ| over each tensor's "
               f"scale: {line(gaps)} (limits: every tensor {GRAD_TOL[0]:g}, "
@@ -1372,9 +1377,7 @@ def eval_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     dev = torch.device(DEVICE)
     counters = (conv3x3.launches, fused_attention.launches, sdf.launches,
                 *conv3x3.routes.values())
-    per_fwd = {"conv3x3": sum(n for _, _, n in conv_shapes(cfg)),  # 13
-               "fused_mha": sum(n for _, _, n in mha_shapes(cfg, assets.left.verts_nums)),
-               "sdf_grid": 0}
+    per_fwd = dict(per_forward(cfg, assets), sdf_grid=0)  # 13 B2, 24 B1
 
     def counted(fn):
         """fn()'s result, the forwards of a `HandNet` it ran and its kernel
@@ -1399,7 +1402,7 @@ def eval_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
 
     held = {}
     for seed, batch in enumerate((EVAL_BATCH, EVAL_CLI_BATCH)):
-        held[batch] = hold_path_kernels(cfg, assets.left.verts_nums, batch, seed=10 + seed)
+        held[batch] = hold_path_kernels(cfg, assets, batch, seed=10 + seed)
         print(f"[eval] the path's kernels at batch {batch} against their plain versions, "
               f"every shape of a forward: B2 bfloat16 (wgmma) max|Δ| "
               f"{held[batch]['conv3x3']:.3e} (atol/rtol {CONV_TOL['bfloat16']}), B1 float32 "
@@ -1527,14 +1530,17 @@ def _launches() -> dict:
             "sdf_grid": sdf.launches.value}
 
 
-def _check_run_launches(label: str, launches: dict, want: dict) -> None:
+def _check_run_launches(label: str, launches: dict, want: dict,
+                        must_launch: tuple = ("conv3x3",)) -> None:
     """The path's launches, reset to 0 before it ran, against `want`, every
-    B2 on `wgmma`; a kernel the path runs must have launched."""
+    B2 on `wgmma`; each kernel of `must_launch` (those the path runs) must
+    have launched."""
     if launches != want or _routes() != {"simt": 0, "wgmma": want["conv3x3"]}:
         raise AssertionError(f"{label}: launches {launches}, B2 routes {_routes()}; expected "
                              f"{want}, every B2 on wgmma")
-    if not launches["conv3x3"]:
-        raise AssertionError(f"{label}: B2 never launched")
+    for name in must_launch:
+        if not launches[name]:
+            raise AssertionError(f"{label}: {name} never launched")
 
 
 def recipe_config(cfg):
@@ -1570,8 +1576,7 @@ def recipe_train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> tup
 
     rcfg = recipe_config(cfg)
     batch = rcfg.train.batch_size
-    per_fwd_b2 = sum(n for _, _, n in conv_shapes(rcfg))  # 13
-    per_fwd_b1 = sum(n for _, _, n in mha_shapes(rcfg, assets.left.verts_nums))  # 24
+    per_fwd_b2, per_fwd_b1 = per_forward(rcfg, assets).values()  # 13, 24
     spe = RECIPE_SYNTH_N // batch
     _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
@@ -1666,41 +1671,16 @@ def mano_train_phase(cfg, assets, gpu_line: str) -> dict:
     """`decoder="mano"` training on the card (see the module docstring,
     phase 12)."""
     import copy
-    import tempfile
-
-    import numpy as np
-    import torch
-
-    from renderih_tpu_torch.apps import train as train_app
-    from renderih_tpu_torch.kernels import _build
 
     mcfg = copy.deepcopy(cfg)
     mcfg.model.decoder = "mano"
-    per_step = 2 * sum(n for _, _, n in conv_shapes(mcfg))  # 26
-    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
-        yaml = _train_yaml(mcfg, root, "mano", log_every=1, eval_every=1000, save_gap=1000)
-        for counter in _counters():
-            counter.reset()
-        run = train_app.main(["--cfg", yaml, "--synthetic", "--synth_n", str(TRAIN_SYNTH_N),
-                              "--steps", str(MANO_STEPS), "--device", DEVICE])
-        launches = _launches()
-    n_steps = run["final_step"]
-    want = {"conv3x3": per_step * n_steps, "fused_mha": 0, "sdf_grid": 0}
-    _check_run_launches("mano training", launches, want)
-    for step, terms in run["logged"]:
-        if not (all(np.isfinite(v) for v in terms.values()) and terms["mano_pose"] > 0
-                and not terms["skipped_nonfinite"]):
-            raise AssertionError(f"step {step}: terms {terms}")
+    run = train_run_phase(mcfg, assets, gpu_line, "mano", MANO_STEPS)
     mano = {k: [t[k] for _, t in run["logged"]] for k in ("mano_pose", "mano_shape", "total")}
-    print(f"[mano] apps.train, Config() with decoder mano, batch {mcfg.train.batch_size}, "
-          f"--synthetic --steps {MANO_STEPS}: {n_steps} steps, launches {launches} (expected "
-          f"{want}), every B2 on wgmma; mano_pose "
-          f"{' '.join(f'{v:.4f}' for v in mano['mano_pose'])}, total "
-          f"{mano['total'][0]:.4f} -> {mano['total'][-1]:.4f}, every term finite; "
-          f"{run['images_per_s']:.1f} images/s on {gpu_line}", flush=True)
-    torch.cuda.empty_cache()
-    return dict(steps=n_steps, launches=launches, terms=mano, images_per_s=run["images_per_s"])
+    if not all(v > 0 for v in mano["mano_pose"]):
+        raise AssertionError(f"mano training: mano_pose {mano['mano_pose']}")
+    print(f"[mano] mano_pose {' '.join(f'{v:.4f}' for v in mano['mano_pose'])}", flush=True)
+    return dict(steps=run["steps"], launches=run["launches"], terms=mano,
+                images_per_s=run["images_per_s"])
 
 
 def recipe_parity_phase(cfg, assets) -> list:
@@ -1775,13 +1755,6 @@ def bucket_phase(cfg, assets) -> dict:
     buckets = engine.buckets
     size = cfg.model.img_size
     images = np.random.default_rng(6).integers(0, 256, (buckets[-1], size, size, 3), np.uint8)
-    held = {b: hold_path_kernels(cfg, assets.left.verts_nums, b, seed=20 + i)
-            for i, b in enumerate(buckets)}
-    print("[buckets] the path's kernels at each bucket against their plain versions on random "
-          "inputs, max|Δ| B2 bfloat16 (wgmma) / B1 float32: "
-          + ", ".join(f"batch {b} {h['conv3x3']:.3e} / {h['fused_mha']:.3e}"
-                      for b, h in held.items()), flush=True)
-
     # every B2 and B1 call of one forward at the largest bucket, on its own
     # activations: against the plain version, and on its first b images
     # against itself
@@ -1903,7 +1876,7 @@ def bucket_phase(cfg, assets) -> dict:
           f"B1's on the same weights and images, the largest max|Δ| / max|ref| of an output "
           f"{fmt(plain_gap)}; the f32 engine (TF32 off), image 0 at bucket {buckets[0]} and "
           f"{buckets[-1]}: {fmt(f32_gap)}", flush=True)
-    return dict(random_inputs=held, conv3x3=worst["conv3x3"], fused_mha=worst["fused_mha"],
+    return dict(conv3x3=worst["conv3x3"], fused_mha=worst["fused_mha"],
                 n_calls=n_calls, first_part=first,
                 stages=stages, served=served_gap, stock_per_image=alone_gap,
                 plain_vs_kernel=plain_gap, f32=f32_gap)
@@ -1920,9 +1893,7 @@ def aux_serve_phase(cfg, assets, state_dict: dict) -> dict:
     from renderih_tpu_torch.serve import InferenceEngine
 
     rcfg = recipe_config(cfg)
-    per_fwd = {"conv3x3": sum(n for _, _, n in conv_shapes(rcfg)),  # 13
-               "fused_mha": sum(n for _, _, n in mha_shapes(rcfg, assets.left.verts_nums)),
-               "sdf_grid": 0}
+    per_fwd = dict(per_forward(rcfg, assets), sdf_grid=0)  # 13 B2, 24 B1
     images = np.random.default_rng(4).integers(0, 256, (AUX_SERVE_N, rcfg.model.img_size,
                                                         rcfg.model.img_size, 3), np.uint8)
     engine = InferenceEngine(rcfg, assets=assets, state_dict=state_dict, device=DEVICE)
@@ -2000,9 +1971,7 @@ def http_phase(cfg, assets, gpu_line: str) -> dict:
     from renderih_tpu_torch.serve_http import HandPoseHTTPServer
 
     size = cfg.model.img_size
-    per_fwd = {"conv3x3": sum(n for _, _, n in conv_shapes(cfg)),
-               "fused_mha": sum(n for _, _, n in mha_shapes(cfg, assets.left.verts_nums)),
-               "sdf_grid": 0}
+    per_fwd = dict(per_forward(cfg, assets), sdf_grid=0)
     engine = InferenceEngine(cfg, assets=assets, device=DEVICE, seed=0)
     engine.warmup()
     groups, lock = [], threading.Lock()  # the batches the engine ran, and their outputs
@@ -2123,6 +2092,183 @@ def http_phase(cfg, assets, gpu_line: str) -> dict:
                 rel_err=errs, across_buckets_rel=across)
 
 
+def serve_phase(cfg, assets, gpu_line: str, tag: str, n_images: int = BATCH,
+                buckets: tuple | None = None, requests: int = 0,
+                profile: bool = False) -> dict:
+    """`InferenceEngine` on `cfg` (seed-0 weights) on the card. First the
+    path's B2 and B1 at every shape of a forward at each of the engine's
+    buckets, against their plain versions on random inputs
+    (`hold_path_kernels`). Then, counted from 0: `requests` single-image
+    requests through `BatchingServer`, one `predict` at each bucket below
+    the largest, and three of `n_images`. Held: exactly the model's B2 and
+    B1 calls a forward (`kernel_shapes`), every B2 on `wgmma`; outputs of
+    their shapes, finite. Prints images/s, the median of the three, and a
+    served request against the same image in the big batch (not held:
+    cuDNN may pick other algorithms at other batch sizes)."""
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.serve import DEFAULT_BUCKETS, BatchingServer, InferenceEngine
+
+    engine = InferenceEngine(cfg, assets=assets, device=DEVICE, seed=0,
+                             buckets=buckets or DEFAULT_BUCKETS)
+    held = {b: hold_path_kernels(cfg, assets, b, seed=20 + i)
+            for i, b in enumerate(engine.buckets)}
+    dtypes = {kernel: "/".join(sorted({s[-2] for s in shapes}))
+              for kernel, shapes in kernel_shapes(cfg, assets).items()}
+    print(f"[{tag}] the path's kernels at each bucket against their plain versions on random "
+          f"inputs, max|Δ| B2 {dtypes['conv3x3'] or '-'} / B1 {dtypes['fused_mha'] or '-'}: "
+          + ", ".join(f"batch {b} {h['conv3x3']:.3e} / {h['fused_mha']:.3e}"
+                      for b, h in held.items()), flush=True)
+    engine.warmup()
+    forwards = [0]
+    hook = engine.model.register_forward_pre_hook(
+        lambda mod, args: forwards.__setitem__(0, forwards[0] + 1))
+    size = cfg.model.img_size
+    images = np.random.default_rng(6).integers(0, 256, (n_images, size, size, 3), dtype=np.uint8)
+    for counter in _counters():
+        counter.reset()
+    served = []
+    if requests:
+        server = BatchingServer(engine)
+        try:
+            futs = [server.submit(images[i]) for i in range(requests)]
+            served = [f.result(timeout=600) for f in futs]
+        finally:
+            server.close()
+    for b in engine.buckets[:-1]:
+        engine.predict(images[:b])
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.predict(images)
+        rates.append(n_images / (time.perf_counter() - t0))
+    launches, routes = _launches(), _routes()
+    hook.remove()
+    per_fwd = dict(per_forward(cfg, assets), sdf_grid=0)
+    want = {k: n * forwards[0] for k, n in per_fwd.items()}
+    _check_run_launches(tag, launches, want,
+                        must_launch=tuple(k for k, n in per_fwd.items() if n))
+    for i, res in enumerate(served):
+        if res["verts3d_left"].shape != (778, 3):
+            raise AssertionError(f"{tag} request {i}: shape {res['verts3d_left'].shape}")
+    for key, val in out.items():
+        exp = {"verts3d": (n_images, 778, 3), "verts2d": (n_images, 778, 2),
+               "scale": (n_images,), "trans2d": (n_images, 2)}[key.rsplit("_", 1)[0]]
+        if val.shape != exp or not np.isfinite(val).all():
+            raise AssertionError(f"{tag} {key}: shape {val.shape} (want {exp}) or non-finite")
+    rate = sorted(rates)[1]
+    wave = gap_note = ""
+    if served:
+        ref = out["verts3d_left"][0]
+        gap = np.abs(served[0]["verts3d_left"] - ref).max() / max(np.abs(ref).max(), 1e-6)
+        wave = f"{requests} requests through BatchingServer, then "
+        gap_note = f"; served-vs-batched rel max|Δ| {gap:.2e}"
+    print(f"[{tag}] InferenceEngine, {cfg.model.encoder} ({cfg.train.precision}), buckets "
+          f"{engine.buckets}: {forwards[0]} forwards ({wave}one predict at each smaller "
+          f"bucket, then 3 of {n_images}), launches {launches} = {per_fwd} a forward, B2 "
+          f"routes {routes}; {rate:.1f} images/s (median of "
+          f"{', '.join(f'{r:.1f}' for r in rates)}; upload and copy back included) on "
+          f"{gpu_line}{gap_note}", flush=True)
+    result = dict(held=held, launches=launches, conv3x3_routes=routes, forwards=forwards[0],
+                  per_forward=per_fwd, images_per_s=rate, images_per_s_runs=rates)
+    if profile:
+        batch = images[:engine.buckets[-1]]
+        result["profile"] = profile_phase(f"predict({len(batch)})",
+                                          lambda: engine.predict(batch))
+    del engine
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_run_phase(cfg, assets, gpu_line: str, tag: str, steps: int) -> dict:
+    """`apps.train` on `cfg`, `--synthetic`, `steps` steps on the card (no
+    eval, no checkpoint between). Held: exactly 2x the model's B2 calls a
+    forward a step (forward and dx), all on `wgmma`, and no B1 (training
+    keeps the plain attention, as JAX does); every logged term finite, none
+    skipped. Prints images/s (the train app's median)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import train as train_app
+    from renderih_tpu_torch.kernels import _build
+
+    per_step = 2 * per_forward(cfg, assets)["conv3x3"]
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        yaml = _train_yaml(cfg, root, tag, log_every=1, eval_every=1000, save_gap=1000)
+        for counter in _counters():
+            counter.reset()
+        run = train_app.main(["--cfg", yaml, "--synthetic", "--synth_n", str(TRAIN_SYNTH_N),
+                              "--steps", str(steps), "--device", DEVICE])
+        launches = _launches()
+    n_steps = run["final_step"]
+    want = {"conv3x3": per_step * n_steps, "fused_mha": 0, "sdf_grid": 0}
+    _check_run_launches(f"{tag} training", launches, want,
+                        must_launch=("conv3x3",) if per_step else ())
+    for step, terms in run["logged"]:
+        if not all(np.isfinite(v) for v in terms.values()) or terms["skipped_nonfinite"]:
+            raise AssertionError(f"{tag} step {step}: terms {terms}")
+    first, last = run["logged"][0][1], run["logged"][-1][1]
+    print(f"[{tag}] apps.train, {cfg.model.encoder} ({cfg.train.precision}), decoder "
+          f"{cfg.model.decoder}, batch {cfg.train.batch_size}, --synthetic --steps {steps}: "
+          f"{n_steps} steps, launches {launches} (expected {want}: {per_step} B2 a step, "
+          f"all on wgmma, no B1); every term finite at every step ("
+          + ", ".join(f"{k} {first[k]:.4f} -> {last[k]:.4f}" for k in sorted(last)
+                      if k != "skipped_nonfinite")
+          + f"); {run['images_per_s']:.1f} images/s on {gpu_line}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(steps=n_steps, launches=launches, first=first, last=last,
+                logged=run["logged"], images_per_s=run["images_per_s"])
+
+
+def vit_path_phase(assets, gpu_line: str, flagship_cfg) -> tuple:
+    """The ViT path (see the module docstring, phase 16): (kernel rows,
+    result)."""
+    import copy
+
+    from renderih_tpu_torch.config import load_config
+
+    cfg = load_config(VIT_YAML)
+    large = copy.deepcopy(cfg)
+    large.model.encoder = "vit_large"
+    done = {k: set(shape_counts(flagship_cfg, assets, k)) for k in ("conv3x3", "fused_mha")}
+    rows = kernel_phase(cfg, assets, skip=done, label="vit_base")
+    calls = shape_counts(cfg, assets, "fused_mha")
+    large_rows = kernel_phase(large, assets, skip={"fused_mha": done["fused_mha"] | set(calls)},
+                              label="vit_large")
+    serve = serve_phase(cfg, assets, gpu_line, "vit-serve")
+    errs = parity_phase(cfg, assets, tag="vit-parity")
+    train = train_run_phase(cfg, assets, gpu_line, "vit-train", VIT_TRAIN_STEPS)
+    if not {"mano_pose", "mano_shape"} <= set(train["last"]):
+        raise AssertionError(f"vit-train: no mano terms in {sorted(train['last'])}")
+    train_parity = train_parity_phase(cfg, assets, seeds=((0, 2),), tag="vit-train-parity")
+    large_serve = serve_phase(large, assets, gpu_line, "vit-large-serve",
+                              n_images=VIT_LARGE_BUCKET, buckets=(VIT_LARGE_BUCKET,))
+    return ({"fused_mha": rows["fused_mha"] + large_rows["fused_mha"]},
+            dict(serve=serve, parity=errs, train=train, train_parity=train_parity,
+                 large_serve=large_serve))
+
+
+def hrnet_path_phase(assets, gpu_line: str, flagship_cfg) -> tuple:
+    """The HRNet path (see the module docstring, phase 17): (kernel rows,
+    backward rows, result)."""
+    import copy
+
+    cfg = copy.deepcopy(flagship_cfg)
+    cfg.model.encoder = HRNET_ENCODER
+    rows = kernel_phase(cfg, assets, skip={"fused_mha": set(shape_counts(
+        flagship_cfg, assets, "fused_mha"))}, label=HRNET_ENCODER)
+    bwd = conv_backward_phase(cfg, assets, dtypes=("bfloat16",), seed=17)
+    serve = serve_phase(cfg, assets, gpu_line, "hrnet-serve")
+    errs = parity_phase(cfg, assets, tag="hrnet-parity")
+    train = train_run_phase(cfg, assets, gpu_line, "hrnet-train", HRNET_TRAIN_STEPS)
+    return rows, bwd, dict(serve=serve, parity=errs, train=train)
+
+
 def _summary(rows: list, launches: int) -> dict:
     """One kernel's totals over the launches of one unit of its path (a
     flagship forward at batch 256; a refined sample)."""
@@ -2137,6 +2283,20 @@ def _summary(rows: list, launches: int) -> dict:
                 bound_by="bytes" if t_bytes >= bound else "operations",
                 library_ms=None if any(r["library_ms"] is None for r in rows)
                 else total("library_ms"))
+
+
+def _path_rows(rows: list, calls: list) -> list:
+    """The rows of `rows` at a path's (shape, dtype) calls, each row's
+    `launches_per_forward` the path's calls at it."""
+    want = {(n, m, h, d, dname): count for n, m, h, d, dname, count in calls}
+    out = []
+    for r in rows:
+        key = (*r["shape"][1:], r["dtype"])
+        if key in want:
+            out.append(dict(r, launches_per_forward=want.pop(key)))
+    if want:
+        raise AssertionError(f"no kernel row at the path's calls {sorted(want)}")
+    return out
 
 
 def _train_summary(rows: list, launches: int) -> dict:
@@ -2163,7 +2323,7 @@ def run(json_path: str | None, profile: bool) -> int:
         return 2
     try:
         from renderih_tpu_torch.assets import make_synthetic_assets
-        from renderih_tpu_torch.config import Config
+        from renderih_tpu_torch.config import Config, load_config
         from renderih_tpu_torch.kernels import _build
     except ImportError as e:
         print(f"chip_smoke: the renderih_tpu_torch package is not beside this "
@@ -2189,9 +2349,8 @@ def run(json_path: str | None, profile: bool) -> int:
 
     cfg = Config()
     assets = make_synthetic_assets(0)
-    verts_nums = assets.left.verts_nums
-    rows = kernel_phase(cfg, verts_nums)
-    path = main_path_phase(cfg, assets, gpu_line, profile)
+    rows = kernel_phase(cfg, assets)
+    path = serve_phase(cfg, assets, gpu_line, "path", requests=N_REQUESTS, profile=profile)
     errs = parity_phase(cfg, assets)
     rows["sdf_grid"] = sdf_kernel_phase(assets)
     synth = synth_phase(assets, gpu_line, profile)
@@ -2199,13 +2358,14 @@ def run(json_path: str | None, profile: bool) -> int:
     on_path = [r for r in rows["sdf_grid"] if r["mesh"] == "hand" and r["grid"] == SYNTH_GRID]
     for r in on_path:
         r["launches_per_forward"] = synth["per_sample"]
-    bwd_rows = conv_backward_phase(cfg)
+    bwd_rows = conv_backward_phase(cfg, assets)
     train = train_phase(cfg, assets, gpu_line, profile)
     train_parity = train_parity_phase(cfg, assets)
     evaluation = eval_phase(cfg, assets, gpu_line, profile)
     recipe_batch = recipe_config(cfg).train.batch_size
-    recipe_bwd = conv_backward_phase(cfg, batch=recipe_batch, dtypes=("bfloat16",), seed=11)
-    recipe_held = hold_path_kernels(cfg, verts_nums, recipe_batch, seed=12)
+    recipe_bwd = conv_backward_phase(cfg, assets, batch=recipe_batch, dtypes=("bfloat16",),
+                                     seed=11)
+    recipe_held = hold_path_kernels(cfg, assets, recipe_batch, seed=12)
     print(f"[recipe] the path's kernels at batch {recipe_batch} against their plain versions: "
           f"B2 bfloat16 (wgmma) forward and dx above, forward again max|Δ| "
           f"{recipe_held['conv3x3']:.3e}; B1 float32 (the in-training eval) max|Δ| "
@@ -2216,6 +2376,8 @@ def run(json_path: str | None, profile: bool) -> int:
     buckets = bucket_phase(cfg, assets)
     aux_serve = aux_serve_phase(cfg, assets, recipe_state)
     http = http_phase(cfg, assets, gpu_line)
+    vit_rows, vit = vit_path_phase(assets, gpu_line, cfg)
+    hrnet_rows, hrnet_bwd, hrnet = hrnet_path_phase(assets, gpu_line, cfg)
     per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
     b3_ms = synth["per_sample"] * on_path[0]["ms"]
     print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
@@ -2239,6 +2401,19 @@ def run(json_path: str | None, profile: bool) -> int:
              replaces="renderih_tpu/kernels/fused_attention.py:43",
              **_summary([r for r in rows["fused_mha"] if r["dtype"] == "float32"],
                         path["launches"]["fused_mha"])),
+        dict(name="fused_mha", path="vit_serve", route="cuda",
+             source=f"{src}/csrc/fused_attention.cu",
+             replaces="renderih_tpu/kernels/fused_attention.py:43",
+             **_summary(_path_rows(vit_rows["fused_mha"] + rows["fused_mha"],
+                                   kernel_shapes(load_config(VIT_YAML), assets)["fused_mha"]),
+                        vit["serve"]["launches"]["fused_mha"])),
+        dict(name="conv3x3_same", path="hrnet_serve", route="cuda",
+             source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
+             **_summary([r for r in hrnet_rows["conv3x3"] if r["dtype"] == "bfloat16"],
+                        hrnet["serve"]["launches"]["conv3x3"])),
+        dict(name="conv3x3_same", path="hrnet_train", route="cuda",
+             source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
+             **_train_summary(hrnet_bwd, hrnet["train"]["launches"]["conv3x3"])),
         dict(name="sdf_grid", path="synth", route="cuda", source=f"{src}/csrc/sdf.cu",
              replaces="renderih_tpu/kernels/sdf_pallas.py:124",
              **dict(_summary(on_path, synth["launches"]["sdf_grid"]),
@@ -2253,8 +2428,10 @@ def run(json_path: str | None, profile: bool) -> int:
                        "eval_path": evaluation, "recipe_conv_backward": recipe_bwd,
                        "recipe_held": recipe_held, "recipe_path": recipe, "mano_path": mano,
                        "recipe_parity": recipe_parity, "buckets": buckets,
-                       "aux_serve": aux_serve,
-                       "http_path": http, "kernels": kernels}, f, indent=1,
+                       "aux_serve": aux_serve, "http_path": http,
+                       "vit_rows": vit_rows, "vit_path": vit, "hrnet_rows": hrnet_rows,
+                       "hrnet_conv_backward": hrnet_bwd, "hrnet_path": hrnet,
+                       "kernels": kernels}, f, indent=1,
                       default=float)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))

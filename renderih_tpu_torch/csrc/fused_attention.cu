@@ -1,18 +1,20 @@
-// Fused multi-head attention for the decoder's short token streams, on
-// Hopper's tensor cores:
+// Fused multi-head attention for the decoder's short token streams and the
+// ViT encoders' 256-token ones, on Hopper's tensor cores:
 // out[b, n, h, :] = softmax(q[b, n, h] . k[b, :, h]^T / sqrt(D)) v[b, :, h],
 // q (B, N, H, D), k/v (B, M, H, D) -> out (B, N, H, D) == (B, N, H*D).
 //
 // Replaces renderih_tpu/kernels/fused_attention.py:_mha_kernel (the Pallas
-// kernel behind every attention core of the dual-graph decoder). Same
-// contract: max-subtracted softmax, f32 accumulation, output in q's dtype,
-// no mask, no dropout, forward only. D in {16, 32, 64}; any N, M >= 1.
+// kernel behind every attention core of the dual-graph decoder and of the
+// ViT encoders). Same contract: max-subtracted softmax, f32 accumulation,
+// output in q's dtype, no mask, no dropout, forward only. D in {16, 32, 64,
+// 96, 128}; any N, M >= 1.
 //
 // What bounds it on an H100: bytes. The streams are short (N, M from 61 to
-// 308 tokens), so a (batch, head) pair is at most a few MFLOP; at every
-// flagship shape q, k, v and out over 3.35 TB/s take longer than the FLOPs
-// over the 495 TFLOP/s TF32 tensor-core peak or the exponentials over the
-// MUFU rate. The design keeps the (N, M) score matrix in registers, reads
+// 308 tokens in the decoder, 256 keys in the ViT), so a (batch, head) pair
+// is at most some tens of MFLOP; at every path shape q, k, v and out over 3.35
+// TB/s take longer than the FLOPs over the 495 TFLOP/s TF32 (989 bf16)
+// tensor-core peak or the exponentials over the MUFU rate, by 2x or more
+// at the ViT's. The design keeps the (N, M) score matrix in registers, reads
 // each input once from device memory (K/V re-reads of a pair's other query
 // tiles hit L2) and keeps copies in flight while the tensor cores work. The
 // f32 route pays for its accuracy in instructions: three TF32 passes, the
@@ -22,9 +24,10 @@
 // Design (FlashAttention-2's shape, sized to these streams):
 // - Work split: a block is 4 warps and takes one (batch, head) pair and a
 //   tile of 64 query rows; each warp owns 16 rows, whose Q fragments stay
-//   in registers for the whole key loop. The blocks of one pair are
-//   neighbours in the (1-D) grid, so the pair's K/V, fetched from device
-//   memory by the first of them, is still in L2 for the others. A block
+//   in registers for the whole key loop (but f32 at D >= 96, below). The
+//   blocks of one pair are neighbours in the (1-D) grid, so the pair's K/V,
+//   fetched from device memory by the first of them, is still in L2 for the
+//   others. A block
 //   per query tile rather than one walking all of its pair's tiles: at
 //   N = 61..64 a pair has one tile either way, and at N = 308 five blocks
 //   fill the card five times faster than one.
@@ -69,13 +72,25 @@
 //   rows D + 8 halves (32-bit loads, 16-byte ldmatrix rows). One stage is
 //   64 * (2D + 12) * 4 B in f32 = 35,840 / 19,456 / 11,264 B at D = 64 / 32
 //   / 16, and 64 * 2 * (D + 8) * 2 B in bf16 = 18,432 / 10,240 / 6,144 B.
-//   Two stages at D = 64 (at most two chunks a pair there: M <= 128 on the
-//   path), three below: 71,680 / 58,368 / 33,792 B in f32, 36,864 / 30,720
-//   / 18,432 B in bf16, dynamic (above 48 KB after cudaFuncSetAttribute,
-//   set once per kernel instance). Shared memory leaves room for three f32
-//   D = 64 blocks an SM; its registers (Q's hi and lo fragments are 64 of
-//   them) for two, which ptxas keeps without spills (a cap at three
-//   blocks' worth made it spill).
+//   Two stages at D >= 64, three below: 71,680 / 58,368 / 33,792 B in f32,
+//   36,864 / 30,720 / 18,432 B in bf16 at D = 64 / 32 / 16, dynamic (above
+//   48 KB after cudaFuncSetAttribute, set once per kernel instance). Two
+//   stages still overlap the copy of chunk c + 1 with chunk c's products
+//   at the ViT's M = 256 (four chunks); a third would cost f32 D = 64 its
+//   third block an SM by shared memory, and its registers (Q's hi and lo
+//   fragments are 64 of them) already hold it to two, which ptxas keeps
+//   without spills (a cap at three blocks' worth made it spill).
+// - D = 96 and 128 (the ViT's pooled-KV attention, 8 heads of 768 or 1024):
+//   in bf16 as at D <= 64, 53,248 / 69,632 B. In f32, Q's split fragments
+//   alone would be 96 / 128 registers a thread beside O's 48 / 64 and S's
+//   32, past the 255 a thread can hold without spilling. There Q's tile of
+//   64 rows stays in shared memory (rows D + 8 floats, as K's; copied with
+//   chunk 0) and each k-step's fragment is loaded and split as it is used,
+//   a few instructions a chunk beside its 3 x 8 x D / 8 mma: 2 x 52,224 +
+//   26,624 = 131,072 B at D = 96, 2 x 68,608 + 34,816 = 172,032 B at
+//   D = 128, one block an SM. Registers a thread (ptxas, none spilled):
+//   f32 214 / 246, bf16 190 / 218 at D = 96 / 128 (launch bounds per
+//   instance: Layout::kMinBlocks).
 // - Ragged edges: rows past N load zeros and are not stored; a warp with no
 //   row computes nothing but still copies its share and meets the barriers.
 //
@@ -106,13 +121,24 @@ struct Layout {
   static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr int kLdK = D + 8;               // elements a K row
   static constexpr int kLdV = kF32 ? D + 4 : D + 8;  // elements a V row
-  static constexpr int kStages = D == 64 ? 2 : 3;
+  static constexpr int kStages = D >= 64 ? 2 : 3;
   // f32 P.V: a second accumulator for 3xTF32's small terms where registers
   // allow (D <= 32), so that no chain of dependent mma is longer than 16
   static constexpr bool kSplitAcc = kF32 && D <= 32;
+  // f32 at D >= 96: Q's tile in shared memory after the stages, K's row pitch
+  static constexpr bool kQSmem = kF32 && D >= 96;
   static constexpr int kVBytes = kBK * kLdK * (int)sizeof(T);  // V after K
   static constexpr int kStageBytes = kBK * (kLdK + kLdV) * (int)sizeof(T);
-  static constexpr int kSmem = kStages * kStageBytes;
+  static constexpr int kQBytes = kQSmem ? kBQ * kLdK * (int)sizeof(T) : 0;
+  static constexpr int kSmem = kStages * kStageBytes + kQBytes;
+  // Blocks an SM the launch bounds name; 0 names none (ptxas's own register
+  // budget). At bf16 D = 96 that budget (168 a thread) spilled; told to fit
+  // two blocks it takes 190 and spills nothing. Naming one block lets ptxas
+  // take more registers: faster at the ViT's instances (f32 D = 96 by 23%,
+  // bf16 D = 64 and 128 by 6%), slower at the decoder's short ones (up to
+  // 15% at D <= 32), so those keep ptxas's budget (timed in PERF.md).
+  static constexpr int kMinBlocks =
+      !kF32 && D == 96 ? 2 : (D == 96 || (!kF32 && D >= 64)) ? 1 : 0;
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -190,33 +216,57 @@ struct Warp;
 
 template <int D>
 struct Warp<float, D> {
-  uint32_t qhi[D / 8][4], qlo[D / 8][4];  // Q's A fragments, split
+  static constexpr bool kQSmem = Layout<float, D>::kQSmem;
+  // Q's A fragments, split; with kQSmem only the rows' shared-memory addresses
+  uint32_t qhi[kQSmem ? 1 : D / 8][4], qlo[kQSmem ? 1 : D / 8][4];
+  const float *q0, *q1;
 
+  // Q's A fragment of k-step ks from rows r0, r1 (null: a row past N).
   // k-index t of step ks is d = 8 ks + 2t, t + 4 is d = 8 ks + 2t + 1
+  static __device__ __forceinline__ void q_frag(const float* r0, const float* r1, int ks, int t,
+                                                uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    const float2 x0 = r0 ? *reinterpret_cast<const float2*>(r0 + 8 * ks + 2 * t)
+                         : make_float2(0.f, 0.f);
+    const float2 x1 = r1 ? *reinterpret_cast<const float2*>(r1 + 8 * ks + 2 * t)
+                         : make_float2(0.f, 0.f);
+    split_tf32(x0.x, hi[0], lo[0]);
+    split_tf32(x1.x, hi[1], lo[1]);
+    split_tf32(x0.y, hi[2], lo[2]);
+    split_tf32(x1.y, hi[3], lo[3]);
+  }
+
   __device__ __forceinline__ void load_q(const float* r0, const float* r1, int t) {
+    q0 = r0;
+    q1 = r1;
+    if constexpr (!kQSmem) {
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const float2 x0 = r0 ? *reinterpret_cast<const float2*>(r0 + 8 * ks + 2 * t)
-                           : make_float2(0.f, 0.f);
-      const float2 x1 = r1 ? *reinterpret_cast<const float2*>(r1 + 8 * ks + 2 * t)
-                           : make_float2(0.f, 0.f);
-      split_tf32(x0.x, qhi[ks][0], qlo[ks][0]);
-      split_tf32(x1.x, qhi[ks][1], qlo[ks][1]);
-      split_tf32(x0.y, qhi[ks][2], qlo[ks][2]);
-      split_tf32(x1.y, qhi[ks][3], qlo[ks][3]);
+      for (int ks = 0; ks < D / 8; ++ks) q_frag(r0, r1, ks, t, qhi[ks], qlo[ks]);
     }
   }
 
-  // S[16 x 64] = Q K^T; K's B fragment for key g of tile nt: row nt*8 + g
-  __device__ __forceinline__ void qk(float (&s)[kNT][4], const float* ks_, int g, int t) const {
+  // S[16 x 64] += Q_ks K_ks^T for one k-step; K's B fragment for key g of
+  // tile nt: row nt*8 + g
+  static __device__ __forceinline__ void qk_step(float (&s)[kNT][4], const uint32_t (&hi)[4],
+                                                 const uint32_t (&lo)[4], const float* ks_,
+                                                 int ks, int g, int t) {
     constexpr int ld = Layout<float, D>::kLdK;
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
+    for (int nt = 0; nt < kNT; ++nt) {
+      const float2 b = *reinterpret_cast<const float2*>(ks_ + (nt * 8 + g) * ld + 8 * ks + 2 * t);
+      mma_3xtf32(s[nt], s[nt], hi, lo, b.x, b.y);
+    }
+  }
+
+  // S[16 x 64] = Q K^T
+  __device__ __forceinline__ void qk(float (&s)[kNT][4], const float* ks_, int g, int t) const {
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const float2 b =
-            *reinterpret_cast<const float2*>(ks_ + (nt * 8 + g) * ld + 8 * ks + 2 * t);
-        mma_3xtf32(s[nt], s[nt], qhi[ks], qlo[ks], b.x, b.y);
+    for (int ks = 0; ks < D / 8; ++ks) {
+      if constexpr (kQSmem) {
+        uint32_t hi[4], lo[4];
+        q_frag(q0, q1, ks, t, hi, lo);
+        qk_step(s, hi, lo, ks_, ks, g, t);
+      } else {
+        qk_step(s, qhi[ks], qlo[ks], ks_, ks, g, t);
       }
     }
   }
@@ -312,6 +362,23 @@ struct Warp<__nv_bfloat16, D> {
   }
 };
 
+// Copy query rows r0 .. r0 + 63 of Q (zeros past N) to shared memory at
+// `dst`, rows K's pitch apart (f32 at D >= 96).
+template <typename T, int D>
+__device__ __forceinline__ void load_q_tile(unsigned dst, const T* qb, int r0, int N, size_t ld) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = D / kVec;
+  static_assert(kBQ * kPerRow % kThreads == 0, "every thread copies alike");
+#pragma unroll
+  for (int r = 0; r < kBQ * kPerRow / kThreads; ++r) {
+    const int i = threadIdx.x + r * kThreads;
+    const int j = i / kPerRow, c = (i % kPerRow) * kVec;
+    const bool valid = r0 + j < N;
+    cp_async16(dst + (j * Layout<T, D>::kLdK + c) * sizeof(T),
+               qb + (valid ? (size_t)(r0 + j) * ld + c : 0), valid);
+  }
+}
+
 // Copy keys j0 .. j0 + 63 of K and V (zeros past M) into one stage.
 template <typename T, int D>
 __device__ __forceinline__ void load_chunk(unsigned char* stage, const T* kb, const T* vb,
@@ -333,7 +400,7 @@ __device__ __forceinline__ void load_chunk(unsigned char* stage, const T* kb, co
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Layout<T, D>::kMinBlocks)
 mha_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                T* __restrict__ out, int N, int M, int H, int q_tiles, float scale_log2) {
   using L = Layout<T, D>;
@@ -348,6 +415,10 @@ mha_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const T* kb = k + ((size_t)b * M * H + h) * D;
   const T* vb = v + ((size_t)b * M * H + h) * D;
   const int n_chunks = (M + kBK - 1) / kBK;
+  const T* qb = q + ((size_t)b * N * H + h) * D;
+  unsigned char* q_smem = smem + L::kStages * L::kStageBytes;
+  if constexpr (L::kQSmem)  // lands with chunk 0 (the first group)
+    load_q_tile<T, D>(smem_u32(q_smem), qb, tile * kBQ, N, ld);
 
 #pragma unroll
   for (int c = 0; c < L::kStages - 1; ++c) {
@@ -357,9 +428,13 @@ mha_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   const int row0 = tile * kBQ + warp * 16 + g, row1 = row0 + 8;
   const bool active = tile * kBQ + warp * 16 < N;  // warp-uniform
-  const T* qb = q + ((size_t)b * N * H + h) * D;
   Warp<T, D> w;
-  w.load_q(row0 < N ? qb + row0 * ld : nullptr, row1 < N ? qb + row1 * ld : nullptr, t);
+  if constexpr (L::kQSmem) {  // read after chunk 0's barrier, zeros past N
+    const T* r0 = reinterpret_cast<const T*>(q_smem) + (warp * 16 + g) * L::kLdK;
+    w.load_q(r0, r0 + 8 * L::kLdK, t);
+  } else {
+    w.load_q(row0 < N ? qb + row0 * ld : nullptr, row1 < N ? qb + row1 * ld : nullptr, t);
+  }
 
   // O's accumulators; f32 at D <= 32 keeps 3xTF32's small terms apart
   float o[D / 8][4], o_small[D / 8][4];
@@ -477,6 +552,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int N,
     case 16: return static_cast<int>(launch_d<T, 16>(q, k, v, out, B, N, M, H, s));
     case 32: return static_cast<int>(launch_d<T, 32>(q, k, v, out, B, N, M, H, s));
     case 64: return static_cast<int>(launch_d<T, 64>(q, k, v, out, B, N, M, H, s));
+    case 96: return static_cast<int>(launch_d<T, 96>(q, k, v, out, B, N, M, H, s));
+    case 128: return static_cast<int>(launch_d<T, 128>(q, k, v, out, B, N, M, H, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -502,6 +579,8 @@ extern "C" int fused_mha_smem_bytes(int bf16, int D) {
     case 16: return bf16 ? Layout<__nv_bfloat16, 16>::kSmem : Layout<float, 16>::kSmem;
     case 32: return bf16 ? Layout<__nv_bfloat16, 32>::kSmem : Layout<float, 32>::kSmem;
     case 64: return bf16 ? Layout<__nv_bfloat16, 64>::kSmem : Layout<float, 64>::kSmem;
+    case 96: return bf16 ? Layout<__nv_bfloat16, 96>::kSmem : Layout<float, 96>::kSmem;
+    case 128: return bf16 ? Layout<__nv_bfloat16, 128>::kSmem : Layout<float, 128>::kSmem;
     default: return -1;
   }
 }

@@ -3,9 +3,13 @@
 
 `HandNet.forward` takes NHWC `(B, H, W, 3)` normalised images, like the
 JAX package; the encoder runs on the NCHW view of that tensor, which is
-`channels_last` in memory. Parameter names are the upstream torch
-state_dict's (`encoder.resnet.*`, `mid_model.convs.*`, `decoder.*`), the
-layout `utils/weights.py:state_dict_from_jax` produces.
+`channels_last` in memory. The encoder is a ResNet (`models/resnet.py`),
+a ViT (`models/vit.py`) or an HRNet (`models/hrnet.py`), as
+`model.encoder` names it; the decoder and the aux heads take that
+encoder's widths. Parameter names are the upstream torch state_dict's
+(`encoder.resnet.*` / `encoder.hrnet.*` / the ViT wrapper's `encoder.*`,
+`patch_embed.*`, `conv1.*`, `downsample.*`; `mid_model.*`, `decoder.*`),
+the layout `utils/weights.py:state_dict_from_jax` produces.
 
 Precision policy, as in the JAX package: the encoder runs in bf16 under
 `train.precision="bf16"`, the decoder trunk in f32 unless
@@ -28,7 +32,9 @@ from torch import nn
 from renderih_tpu_torch.assets import Assets
 from renderih_tpu_torch.config import Config
 from renderih_tpu_torch.models.decoder import DecoderOutput, GraphDecoder
+from renderih_tpu_torch.models.hrnet import HRNetEncoder, HRNetMid
 from renderih_tpu_torch.models.resnet import AuxDecoderHead, ResNet, ResNetMid
+from renderih_tpu_torch.models.vit import ViTEncoder, ViTMid, vit_pyramid
 
 
 class ResNetEncoder(nn.Module):
@@ -44,16 +50,20 @@ class ResNetEncoder(nn.Module):
 
 def _check_supported(cfg: Config) -> None:
     m = cfg.model
+    if not m.encoder.startswith(("resnet", "vit", "hrnet")):
+        raise ValueError(f"unknown encoder {m.encoder}")
+    if m.encoder.startswith("vit") and m.img_size != 256:
+        raise ValueError(f"the ViT encoders need model.img_size 256 (a 16x16 "
+                         f"token grid for PooledKVAttention), got {m.img_size}")
     missing = [name for name, on in (
-        (f"encoder={m.encoder}", not m.encoder.startswith("resnet")),
         ("paired_lr", m.paired_lr),
         ("use_cheby", m.use_cheby),
         (f"decoder={m.decoder}", m.decoder not in ("graph", "mano")),
     ) if on]
     if missing:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(missing)} (the port runs the ResNet "
-            "encoders with the MLP graph or mano decoder; see ROADMAP.md)")
+            f"not ported yet: {', '.join(missing)} (the port runs the MLP graph "
+            "or mano decoder; see ROADMAP.md)")
 
 
 class HandNet(nn.Module):
@@ -64,13 +74,30 @@ class HandNet(nn.Module):
         _check_supported(cfg)
         m = cfg.model
         self.dtype = torch.bfloat16 if cfg.train.precision == "bf16" else torch.float32
-        self.encoder = ResNetEncoder(m.encoder)
-        pyramid_dims = self.encoder.resnet.pyramid_dims
-        self.mid_model = ResNetMid(pyramid_dims, tuple(m.deconv_dims))
+        self.vit = m.encoder.startswith("vit")
+        img_dims = tuple(m.deconv_dims)
+        if self.vit:
+            # the upstream wrapper keeps the trunk as `encoder` and the
+            # pyramid's modules beside it: `patch_embed`, `conv1`, `downsample`
+            for name, child in ViTEncoder(m.encoder).named_children():
+                self.add_module(name, child)
+            pyramid_dims = img_dims = (self.encoder.embed_dim,) * 3
+            global_dim = pyramid_dims[0]
+            self.mid_model = ViTMid()
+        elif m.encoder.startswith("hrnet"):
+            self.encoder = HRNetEncoder(m.encoder)
+            pyramid_dims = self.encoder.hrnet.pyramid_dims
+            global_dim = 2048
+            self.mid_model = HRNetMid(pyramid_dims, img_dims)
+        else:
+            self.encoder = ResNetEncoder(m.encoder)
+            pyramid_dims = self.encoder.resnet.pyramid_dims
+            global_dim = pyramid_dims[0]
+            self.mid_model = ResNetMid(pyramid_dims, img_dims)
         self.decoder = GraphDecoder(
             verts_nums=tuple(verts_nums),
-            global_dim=pyramid_dims[0],
-            img_dims=tuple(m.deconv_dims),
+            global_dim=global_dim,
+            img_dims=img_dims,
             gcn_in_dims=tuple(m.gcn_in_dims),
             gcn_out_dims=tuple(m.gcn_out_dims),
             img_sizes=(m.img_size // 32, m.img_size // 16, m.img_size // 8),
@@ -97,7 +124,7 @@ class HandNet(nn.Module):
         predictions, NHWC: 'hms' (B, S, S, 42), 'mask' (B, S, S) and
         'dense' (B, S, S, 6), S = img_size / 4."""
         x = img.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, channels_last
-        pyramid = self.encoder(x)
+        pyramid = vit_pyramid(self, x) if self.vit else self.encoder(x)
         # The decoder reads the first len(verts_nums) maps. Training projects
         # all of them, as the JAX package does: the unread map's BatchNorm
         # still updates its running statistics there.
@@ -143,9 +170,9 @@ def _init_params(model: HandNet, cfg: Config, assets: Assets,
     (a normal cut at ±2σ, σ rescaled so the variance is 1/fan_in), biases
     0, norms at identity, BN statistics (0, 1), position embeddings
     normal(0, 0.02), the upsample from the assets' initializer and, under
-    `zero_init_heads`, zero coord/params head weights. The aux heads and
-    the MANO regressor follow the same rules (`zero_init_heads` leaves
-    them as drawn)."""
+    `zero_init_heads`, zero coord/params head weights. The aux heads, the
+    MANO regressor and the ViT and HRNet encoders follow the same rules
+    (`zero_init_heads` leaves the heads as drawn)."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             fan_in = mod.weight[0].numel()

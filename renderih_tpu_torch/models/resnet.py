@@ -169,10 +169,11 @@ class ResNetMid(nn.Module):
                           BatchNorm2d(cout))
             for cin, cout in zip(in_dims, out_dims))
 
-    def forward(self, pyramid: list, n_levels: int | None = None):
-        """Projects the first `n_levels` scales (all by default): the
+    def project(self, pyramid: list, n_levels: int | None = None) -> list:
+        """The first `n_levels` scales projected (all by default): the
         decoder reads three of the four, and an unread map is not computed."""
-        global_feature = pyramid[0].mean(dim=(2, 3))
         n = len(self.convs) if n_levels is None else n_levels
-        fmaps = [self.convs[i](pyramid[i]) for i in range(n)]
-        return global_feature, fmaps
+        return [self.convs[i](pyramid[i]) for i in range(n)]
+
+    def forward(self, pyramid: list, n_levels: int | None = None):
+        return pyramid[0].mean(dim=(2, 3)), self.project(pyramid, n_levels)

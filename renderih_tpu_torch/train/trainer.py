@@ -126,8 +126,13 @@ def make_train_step(cfg: Config, assets: Assets, steps_per_epoch: int,
         model = state.model.train()
         params = trainable_parameters(model)
         epoch = state.step // steps_per_epoch
-        bn = _bn_buffers(model)
-        bn_before = torch._foreach_mul(bn, 1.0)  # copies
+        bn = _bn_buffers(model)  # none in the ViT encoders
+        bn_before = torch._foreach_mul(bn, 1.0) if bn else []  # copies
+
+        def restore_bn():
+            if bn:
+                torch._foreach_copy_(bn, bn_before)
+
         for p in params:
             p.grad = None
         try:
@@ -146,7 +151,7 @@ def make_train_step(cfg: Config, assets: Assets, steps_per_epoch: int,
                         for k, v in loss_and_backward(model, mb, epoch, inv).items():
                             terms[k] = terms[k] + v * inv if k in terms else v * inv
         except BaseException:
-            torch._foreach_copy_(bn, bn_before)
+            restore_bn()
             raise
         for p in params:  # a parameter no loss term reaches (the JAX gradient: 0)
             if p.grad is None:
@@ -164,7 +169,7 @@ def make_train_step(cfg: Config, assets: Assets, steps_per_epoch: int,
             except Exception as err:
                 raise UpdateFailed("the optimizer or EMA update failed") from err
         else:
-            torch._foreach_copy_(bn, bn_before)
+            restore_bn()
         state.steps_taken += 1
         return terms
 

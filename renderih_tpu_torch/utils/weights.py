@@ -5,7 +5,9 @@ variables as nested dicts of numpy arrays and returns the port's
 state_dict (torch tensors, upstream torch key layout). It is the port's
 own copy of the inverse mapping in
 `renderih_tpu/utils/checkpoint_convert.py` (`_inv_*`,
-`export_reference_checkpoint`), MLP decoder flavour:
+`export_reference_checkpoint`), MLP decoder flavour, and of
+`convert_reference_hrnet` and `convert_vit_wrapper` for the HRNet and ViT
+encoders:
 
   * flax Dense kernel (in, out)        -> Linear weight (out, in)
   * flax Conv kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw)
@@ -99,23 +101,104 @@ def _gcn_block(sub, prefix, out):
         _linear(sub[name], f"{prefix}.{name}", out)
 
 
+def _block(sub, stats, prefix, out):
+    """flax `BasicBlock`/`Bottleneck` -> torchvision names under `prefix`."""
+    for i in (1, 2, 3):
+        if f"conv{i}" in sub:
+            _conv(sub[f"conv{i}"], f"{prefix}.conv{i}", out)
+            _bn(sub[f"bn{i}"], stats[f"bn{i}"], f"{prefix}.bn{i}", out)
+    if "downsample_conv" in sub:
+        _conv(sub["downsample_conv"], f"{prefix}.downsample.0", out)
+        _bn(sub["downsample_bn"], stats["downsample_bn"], f"{prefix}.downsample.1", out)
+
+
 def _resnet(enc, stats, prefix, out):
     """flax `ResNet` subtree -> torchvision names under `prefix`."""
     _conv(enc["conv1"], f"{prefix}.conv1", out)
     _bn(enc["bn1"], stats["bn1"], f"{prefix}.bn1", out)
     for name, sub in enc.items():
-        if not name.startswith("layer"):
-            continue
-        stage, idx = name[len("layer"):].split("_")
-        tp = f"{prefix}.layer{stage}.{idx}"
-        for i in (1, 2, 3):
-            if f"conv{i}" in sub:
-                _conv(sub[f"conv{i}"], f"{tp}.conv{i}", out)
-                _bn(sub[f"bn{i}"], stats[name][f"bn{i}"], f"{tp}.bn{i}", out)
-        if "downsample_conv" in sub:
-            _conv(sub["downsample_conv"], f"{tp}.downsample.0", out)
-            _bn(sub["downsample_bn"], stats[name]["downsample_bn"],
-                f"{tp}.downsample.1", out)
+        if name.startswith("layer"):
+            stage, idx = name[len("layer"):].split("_")
+            _block(sub, stats[name], f"{prefix}.layer{stage}.{idx}", out)
+
+
+def _hrnet(enc, stats, prefix, out):
+    """flax `HRNetEncoder` subtree -> upstream HighResolutionNet names
+    under `prefix`: stem{1,2} -> conv/bn{1,2}; trans{s}_{n} ->
+    transition{s}.{n}[.0] (every transition but the first wraps its conv
+    in one more Sequential); branch{b}_block{k} -> branches.{b}.{k};
+    fuse{j}to{i}_conv[{k}] -> fuse_layers.{i}.{j}[.{k}].0 with its BN at .1."""
+    for i in (1, 2):
+        _conv(enc[f"stem{i}"]["conv"], f"{prefix}.conv{i}", out)
+        _bn(enc[f"stem{i}"]["bn"], stats[f"stem{i}"]["bn"], f"{prefix}.bn{i}", out)
+    for name, sub in enc.items():
+        st = stats[name]
+        if name.startswith("layer1_"):
+            _block(sub, st, f"{prefix}.layer1.{name[len('layer1_'):]}", out)
+        elif name.startswith("trans"):
+            stage, n = name[len("trans"):].split("_")
+            tp = f"{prefix}.transition{stage}.{n}" + ("" if n == "0" else ".0")
+            _conv(sub["conv"], f"{tp}.0", out)
+            _bn(sub["bn"], st["bn"], f"{tp}.1", out)
+        elif name.startswith("stage"):
+            stage, m = name[len("stage"):].split("_m")
+            mp = f"{prefix}.stage{stage}.{m}"
+            for key, part in sub.items():
+                if key.startswith("branch"):
+                    b, k = key[len("branch"):].split("_block")
+                    _block(part, st[key], f"{mp}.branches.{b}.{k}", out)
+                elif "_conv" in key:
+                    j, rest = key[len("fuse"):].split("to")
+                    i, k = rest.split("_conv")
+                    fp = f"{mp}.fuse_layers.{i}.{j}" + (f".{k}" if k else "")
+                    bn = key.replace("_conv", "_bn")
+                    _conv(part, f"{fp}.0", out)
+                    _bn(sub[bn], st[bn], f"{fp}.1", out)
+
+
+def _hrnet_mid(mid, stats, prefix, out):
+    """flax `HRNetMid` subtree -> upstream `hrnet_mid` names under `prefix`."""
+    _mid(mid, stats, prefix, out)
+    for i in range(4):
+        _block(mid[f"incre{i}"], stats[f"incre{i}"], f"{prefix}.incre_modules.{i}.0", out)
+    for i in range(3):
+        _conv(mid[f"down{i}_conv"], f"{prefix}.downsamp_modules.{i}.0", out)
+        _bn(mid[f"down{i}_bn"], stats[f"down{i}_bn"], f"{prefix}.downsamp_modules.{i}.1", out)
+    _conv(mid["final_conv"], f"{prefix}.final_layer.0", out)
+    _bn(mid["final_bn"], stats["final_bn"], f"{prefix}.final_layer.1", out)
+
+
+def _vit_block(blk, prefix, out):
+    """flax `ViTBlock` -> timm's block names under `prefix`."""
+    _ln(blk["norm1"], f"{prefix}.norm1", out)
+    _linear(blk["qkv"], f"{prefix}.attn.qkv", out)
+    _linear(blk["proj"], f"{prefix}.attn.proj", out)
+    _ln(blk["norm2"], f"{prefix}.norm2", out)
+    _linear(blk["mlp_fc1"], f"{prefix}.mlp.fc1", out)
+    _linear(blk["mlp_fc2"], f"{prefix}.mlp.fc2", out)
+
+
+def _pooled_kv(ds, prefix, out):
+    """flax `PooledKVAttention` -> `Myattention`'s names under `prefix`."""
+    for name in ("fc0", "q", "kv", "linear1", "linear2"):
+        _linear(ds[name], f"{prefix}.{name}", out)
+    _conv(ds["sr"], f"{prefix}.sr", out)
+    _ln(ds["norm"], f"{prefix}.norm", out)
+
+
+def _vit(enc, out):
+    """flax `ViTEncoder` subtree -> the upstream ViT wrapper's names: the
+    trunk under `encoder.`, its stride-8 `patch_embed`, `conv1` and
+    `downsample` at the top level."""
+    _conv(enc["patch_embed"]["proj"], "encoder.patch_embed.proj", out)
+    i = 0
+    while f"block_{i}" in enc:
+        _vit_block(enc[f"block_{i}"], f"encoder.blocks.{i}", out)
+        i += 1
+    _ln(enc["last_norm"], "encoder.last_norm", out)
+    _conv(enc["patch_embed8"]["proj"], "patch_embed.proj", out)
+    _conv(enc["conv1"], "conv1", out)
+    _pooled_kv(enc["downsample"], "downsample", out)
 
 
 def _mid(mid, stats, prefix, out):
@@ -168,8 +251,15 @@ def _aux_head(head, stats, prefix, out):
 def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
     """flax (params, batch_stats) of `HandNet` -> the port's state_dict."""
     out: dict = {}
-    _resnet(params["encoder"], batch_stats["encoder"], "encoder.resnet", out)
-    _mid(params["mid"], batch_stats["mid"], "mid_model", out)
+    enc = params["encoder"]
+    if "block_0" in enc:  # ViT: no BatchNorm, no mid parameters
+        _vit(enc, out)
+    elif "stem1" in enc:
+        _hrnet(enc, batch_stats["encoder"], "encoder.hrnet", out)
+        _hrnet_mid(params["mid"], batch_stats["mid"], "mid_model", out)
+    else:
+        _resnet(enc, batch_stats["encoder"], "encoder.resnet", out)
+        _mid(params["mid"], batch_stats["mid"], "mid_model", out)
     _decoder(params["decoder"], "decoder", out)
     for head in ("hms_head", "dp_head"):
         if head in params:

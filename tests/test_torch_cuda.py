@@ -124,6 +124,28 @@ def test_fused_mha_kernel_matches_plain(cuda, b, n, m, d, q_scale, dtype):
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,h,d,q_scale", [
+    # the ViT's attention cores: ViT-B/L blocks (D = 64, N = M = 256) and
+    # the pooled-KV block (8 heads of 768 or 1024: D = 96, 128)
+    (2, 256, 256, 12, 64, 1), (2, 64, 256, 8, 96, 1), (2, 64, 256, 8, 128, 1),
+    # ragged N and M, one key, long M, large logits at the new head dims
+    (3, 17, 300, 4, 96, 1), (3, 70, 130, 4, 128, 1), (2, 1, 1, 2, 96, 1),
+    (2, 8, 1000, 2, 128, 1), (2, 125, 125, 4, 96, 8), (2, 125, 125, 4, 128, 8)])
+def test_fused_mha_kernel_matches_plain_at_vit_shapes(cuda, b, n, m, h, d, q_scale, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = (q_scale * torch.randn(b, n, h, d, device=cuda, generator=g)).to(dtype)
+    k, v = (torch.randn(b, m, h, d, device=cuda, generator=g).to(dtype) for _ in range(2))
+    count = fused_attention.launches.value
+    got = fused_attention.fused_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.launches.value == count + 1
+    assert got.shape == (b, n, h * d) and got.dtype == dtype
+    want = fused_attention.mha_reference(q.float(), k.float(), v.float())
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
 def test_fused_mha_off_the_16_byte_grid(cuda):
     """Contiguous views that start off the kernel's 16-byte copy grid give
     the same answer as aligned ones."""
@@ -176,6 +198,32 @@ def test_conv3x3_backward_matches_plain_autograd(cuda, side, c, dtype):
     # dw sums B·H·W products: hold it relative to its largest element
     err = (wk.grad.float() - wp.grad.float()).abs().max() / wp.grad.float().abs().max()
     assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side,c", [(64, 32), (32, 64), (16, 128), (8, 256), (64, 64)])
+def test_conv3x3_forward_and_dx_at_hrnet_shapes(cuda, side, c, dtype):
+    """HRNet-W32's B2 shapes (its branches at 32-256 channels; layer1 and
+    the first incre block at 64): forward and dx through the kernel (on
+    `wgmma` in bf16, Cout = 32 filling half of its 64-channel tile)
+    against the plain version's autograd (cuDNN on the card)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(3, side, side, c, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(3, 3, c, c, device=cuda, generator=g) / (9 * c) ** 0.5).to(dtype)
+    gy = torch.randn(3, c, side, side, device=cuda, generator=g).to(dtype).permute(0, 2, 3, 1)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    routes = _routes()
+    y = conv3x3.conv3x3_same(xk, wk)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    routes[_conv_route(dtype, c, c)] += 2
+    assert _routes() == routes
+    xp = x.clone().requires_grad_()
+    yp = conv3x3.conv3x3_reference(xp, w)
+    yp.backward(gy)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(y.float(), yp.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(xk.grad.float(), xp.grad.float(), atol=atol, rtol=rtol)
 
 
 def _sgd_step_card_vs_cpu(cuda, init_seed: int, batch_seed: int, **model):
@@ -326,6 +374,33 @@ def test_engine_on_card_matches_cpu_and_launches_the_kernels(cuda):
     want = InferenceEngine(cfg, assets=assets, buckets=(4,), device="cpu").predict(imgs)
     for key, ref in want.items():
         assert got[key].shape == ref.shape
+        err = np.abs(got[key] - ref).max() / max(np.abs(ref).max(), 1e-6)
+        assert err <= 1e-4, f"{key}: rel max|Δ| {err:.3e}"
+
+
+@pytest.mark.parametrize("encoder,size,b2,b1", [
+    ("hrnet_w18", 128, 216, 24), ("vit_tiny_card_test", 256, 0, 2 + 1 + 24)])
+def test_hrnet_and_vit_engines_on_card_match_cpu(cuda, monkeypatch, encoder, size, b2, b1):
+    """HRNet-W18 and a 2-block ViT (the ViT-B block layout at 128 wide) with
+    a small decoder: f32 card (kernels) vs CPU (plain versions), and the
+    launches a forward: B2 at every BasicBlock/Bottleneck 3x3 (216), B1 in
+    every ViT block, the pooled-KV block and the decoder."""
+    from renderih_tpu_torch.models import vit
+
+    monkeypatch.setitem(vit._VIT_CONFIGS, "vit_tiny_card_test",
+                        dict(embed_dim=128, depth=2, num_heads=4))
+    cfg = load_config(overrides={
+        "model": {"encoder": encoder, "img_size": size, "grid_size": 4, "graph_layer_num": 2},
+        "train": {"precision": "f32"}})
+    assets = make_synthetic_assets(0)
+    imgs = np.random.default_rng(1).integers(0, 256, (3, size, size, 3), dtype=np.uint8)
+    card = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda)
+    n_conv, n_mha = conv3x3.launches.value, fused_attention.launches.value
+    got = card.predict(imgs)
+    assert conv3x3.launches.value - n_conv == b2
+    assert fused_attention.launches.value - n_mha == b1
+    want = InferenceEngine(cfg, assets=assets, buckets=(4,), device="cpu").predict(imgs)
+    for key, ref in want.items():
         err = np.abs(got[key] - ref).max() / max(np.abs(ref).max(), 1e-6)
         assert err <= 1e-4, f"{key}: rel max|Δ| {err:.3e}"
 

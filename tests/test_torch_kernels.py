@@ -39,7 +39,7 @@ def test_conv3x3_plain_matches_pallas_and_xla(shape):
     np.testing.assert_allclose(got, xla, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("n,m", [(61, 61), (63, 127)])
 def test_mha_plain_matches_pallas(n, m, d):
     """The plain version the card's kernel is held to, against the Pallas
@@ -148,8 +148,9 @@ def test_flagship_attention_shapes_are_the_modelled_ones():
     from renderih_tpu_torch.assets import make_synthetic_assets
     from renderih_tpu_torch.config import Config
 
-    shapes = chip_smoke.mha_shapes(Config(), make_synthetic_assets(0).left.verts_nums)
-    assert [(n, d) for n, d, _ in shapes] == FLAGSHIP_MHA
+    shapes = chip_smoke.shape_counts(Config(), make_synthetic_assets(0), "fused_mha")
+    assert all(n == m and heads == 4 for n, m, heads, _ in shapes)
+    assert sorted((n, d) for n, _, _, d in shapes) == sorted(FLAGSHIP_MHA)
 
 
 def test_cpu_calls_take_the_plain_version_and_count_nothing():
