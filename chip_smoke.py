@@ -215,11 +215,47 @@ line:
    card vs CPU in f32;
    `apps.train --synthetic --steps 6` at batch 64: 432 B2 launches a step,
    all `wgmma`, no B1, every term finite; images/s of both.
-18. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+18. The decoder variants on `Config()`'s ResNet-50 (bf16 encoder, f32
+   decoder): `use_cheby` (Chebyshev blocks on each stage's Laplacians),
+   then `use_cheby` with `paired_lr` (the port builds the same trunk under
+   it: the same kernel calls, from `kernel_shapes`, and the same
+   state_dict keys, both held). Each served as phase 3 (B2 and B1 held at
+   every shape of a forward at each bucket; three predicts of 256; exact
+   launch counts), card vs CPU in f32 within `PATH_RTOL`, and
+   `apps.train --synthetic --steps 6` at batch 64 as phase 17 (26 B2 a
+   step, all `wgmma`, no B1, every term finite). The paired model also
+   against the unpaired one on the card, loaded from its state_dict (f32,
+   `PATH_RTOL`). Each run's final checkpoint: every block's norm1, which
+   no gradient reaches, moved by AdamW's weight decay alone (each weight
+   prod(1 - lr_t·wd), each bias 0), as optax moves it.
+19. The library modules outside `HandNet`. First B1 at `InterPoint`'s
+   shapes (8 heads at the decoder's widths 256/128/64 on 61/122/244
+   vertices: D = 32, 16 and the new 8) in f32 and bf16 at batch 256, held
+   and timed as phase 2, and the three `InterPoint`s run once each on the
+   card at batch 256 with the counts set to 0 just before: exactly 6 B1
+   launches, at those shapes. Then on the card (f32, TF32 off) against the same
+   module on the CPU, within `PATH_RTOL` of each output's largest value,
+   batch `LIB_BATCH` (2 for the conv nets at a ResNet-50 pyramid's
+   widths): `InterPoint` and `LinearCrossAttention` at each width (B1 at
+   D = 32/16/8 and 64/32/16: exactly 12 launches), `KTDHead` on the
+   2048-d feature and `ktd_mano_outputs`, `FPN`, `CBAM`, `HourglassHead`,
+   `CrossHandInjection`, `PoseDiscriminator` (and its gradients),
+   focal and dice losses with their gradients, `domain_adaptation_loss`
+   with its gradients, and `gradient_reversal` (the features' gradient
+   -lam times the plain loss's, within 1e-6).
+20. The GAN pose prior: phase 5 with `--prior gan` (the port's copy of the
+   trained discriminator): 128 B3 launches a refined sample, penetration
+   falling. The prior's energy and gradient on 8 seeded poses, card vs
+   CPU within 1e-5. Then `tools/train_pose_prior.py --steps 300` on the
+   card: the LSGAN loss of the last 50 steps below half that of the first
+   10, plausible poses scoring above randomized ones.
+21. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
    batch 256 in the flagship's dtypes, B2 per training step at batch 64
    and per recipe training step at batch 128, B3 per refined sample; B1
    per ViT-B forward in its dtypes, B2 per HRNet-W32 forward and training
-   step), and as the last line `{"ok": true, "device": {...}}`.
+   step; B1 in f32 over one forward of each of `InterPoint`'s three
+   widths at batch 256, two launches each), and as the last line
+   `{"ok": true, "device": {...}}`.
 
 All f32 comparisons run with TF32 off in cuDNN and cuBLAS
 (`torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -274,6 +310,9 @@ VIT_TRAIN_STEPS = 10
 VIT_LARGE_BUCKET = 32
 HRNET_ENCODER = "hrnet_w32"  # phase 17, on Config()'s decoder, bf16, batch 64
 HRNET_TRAIN_STEPS = 6
+VARIANT_TRAIN_STEPS = 6  # phase 18: the variants' training at batch 64
+LIB_BATCH = 8  # phase 19: PointAttn's (B, V, V, F) tensors are 3.9 GB at 256 and V = 244
+PRIOR_STEPS = 300  # phase 20: train_pose_prior on the card
 
 
 def _gpu_line() -> str:
@@ -530,7 +569,7 @@ def kernel_phase(cfg, assets, skip: dict | None = None, label: str = "flagship")
     import torch
     import torch.nn.functional as F
 
-    from renderih_tpu_torch.kernels import conv3x3, fused_attention
+    from renderih_tpu_torch.kernels import conv3x3
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -567,12 +606,29 @@ def kernel_phase(cfg, assets, skip: dict | None = None, label: str = "flagship")
                   f"({row['bound_by']})  launches/forward={per_fwd} route={route}", flush=True)
             del x, w, y, x_lib, w_lib
 
+    rows["fused_mha"] = mha_rows(shape_counts(cfg, assets, "fused_mha"), g,
+                                 skip.get("fused_mha", ()), label)
+    return rows
+
+
+def mha_rows(counts: dict, g, skip=(), label: str = "flagship") -> list:
+    """B1 at each (N, M, heads, D) of `counts` ({shape: launches a forward}),
+    but those in `skip`, at batch `BATCH` in f32 and bf16 from generator
+    `g`: held and timed as phase 2 says; prints each dtype's sum over a
+    forward of `label`."""
+    import torch
+    import torch.nn.functional as F
+
+    from renderih_tpu_torch.kernels import fused_attention
+
+    dev = torch.device(DEVICE)
+    rows = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         f32 = dtype == torch.float32
         atol, rtol = MHA_TOL if f32 else CONV_TOL[dname]
-        for (n, m, heads, d), per_fwd in shape_counts(cfg, assets, "fused_mha").items():
-            if (n, m, heads, d) in skip.get("fused_mha", ()):
+        for (n, m, heads, d), per_fwd in counts.items():
+            if (n, m, heads, d) in skip:
                 continue
             q = torch.randn(BATCH, n, heads, d, device=dev, generator=g).to(dtype)
             k, v = (torch.randn(BATCH, m, heads, d, device=dev, generator=g).to(dtype)
@@ -596,7 +652,7 @@ def kernel_phase(cfg, assets, skip: dict | None = None, label: str = "flagship")
             if f32:  # PR 1-3's yardstick: FLOPs over the CUDA-core f32 peak
                 row["cuda_core_bound_ms"] = _bound(n_bytes, flops, "float32")["bound_ms"]
                 old = f" cuda_core_bound_ms={row['cuda_core_bound_ms']:.4f}"
-            rows["fused_mha"].append(row)
+            rows.append(row)
             print(f"[B1] fused_mha {dname} q({BATCH},{n},{heads},{d}) k,v({BATCH},{m},{heads},{d}): "
                   f"max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g})  "
                   f"kernel_ms={row['ms']:.4f} (eager {row['eager_ms']:.4f}) "
@@ -606,7 +662,7 @@ def kernel_phase(cfg, assets, skip: dict | None = None, label: str = "flagship")
                   f"{row['ops_ms']:.4f}, exps {row['exps_ms']:.4f}){old}  "
                   f"launches/forward={per_fwd}", flush=True)
             del q, k, v, out, ql, kl, vl
-        fwd = [r for r in rows["fused_mha"] if r["dtype"] == dname]
+        fwd = [r for r in rows if r["dtype"] == dname]
         if not fwd:
             continue
         total = {key: sum(r[key] * r["launches_per_forward"] for r in fwd)
@@ -773,8 +829,10 @@ def _penetration(labels: dict, assets, grid: int):
             for i in range(v_l.shape[0])]
 
 
-def synth_phase(assets, gpu_line: str, profile: bool = False) -> dict:
-    """The synthetic-data path on the card (see the module docstring)."""
+def synth_phase(assets, gpu_line: str, profile: bool = False, prior: str = "gaussian",
+                tag: str = "synth") -> dict:
+    """The synthetic-data path on the card with the naturalness prior
+    `prior` (`synth_gen --prior`; see the module docstring)."""
     import os
     import tempfile
 
@@ -796,15 +854,15 @@ def synth_phase(assets, gpu_line: str, profile: bool = False) -> dict:
                         *conv3x3.routes.values()):
             counter.reset()
         stats = synth_gen.main(["--out", refined_dir, *common, "--optimize",
-                                "--opt_iters", str(SYNTH_ITERS)])
+                                "--opt_iters", str(SYNTH_ITERS), "--prior", prior])
         launches = {"conv3x3": conv3x3.launches.value,
                     "fused_mha": fused_attention.launches.value,
                     "sdf_grid": sdf.launches.value}
         want = {"conv3x3": 0, "fused_mha": 0, "sdf_grid": SYNTH_N * per_sample}
-        print(f"[synth] synth_gen --n {SYNTH_N} --batch {SYNTH_N} --optimize --opt_iters "
-              f"{SYNTH_ITERS}: launches {launches} (expected {want})", flush=True)
+        print(f"[{tag}] synth_gen --n {SYNTH_N} --batch {SYNTH_N} --optimize --opt_iters "
+              f"{SYNTH_ITERS} --prior {prior}: launches {launches} (expected {want})", flush=True)
         if launches != want:
-            raise AssertionError(f"kernel launches {launches} != {want}")
+            raise AssertionError(f"{tag}: kernel launches {launches} != {want}")
 
         labels = dict(np.load(os.path.join(refined_dir, "train_labels.npz")))
         images = np.memmap(os.path.join(refined_dir, "train_images.u8"), dtype=np.uint8,
@@ -822,13 +880,13 @@ def synth_phase(assets, gpu_line: str, profile: bool = False) -> dict:
     pen1 = np.asarray(_penetration(labels, assets, SYNTH_GRID))
     hit = pen0 > 0
     if not hit.any() or not pen1[hit].mean() < pen0[hit].mean():
-        raise AssertionError(f"penetration did not fall: {pen0[hit].mean() if hit.any() else 0:.4e}"
+        raise AssertionError(f"{tag}: penetration did not fall: {pen0[hit].mean() if hit.any() else 0:.4e}"
                              f" -> {pen1[hit].mean() if hit.any() else 0:.4e} over "
                              f"{int(hit.sum())} interpenetrating samples")
-    print(f"[synth] {int(hit.sum())}/{SYNTH_N} samples started interpenetrating: mean SDF "
+    print(f"[{tag}] {int(hit.sum())}/{SYNTH_N} samples started interpenetrating: mean SDF "
           f"penetration (G={SYNTH_GRID}) {pen0[hit].mean():.4e} -> {pen1[hit].mean():.4e}; "
           f"{int((pen1[hit] > 0).sum())} of them still interpenetrate", flush=True)
-    print(f"[synth] {stats['refined_samples_per_s']:.3f} refined samples/s "
+    print(f"[{tag}] {stats['refined_samples_per_s']:.3f} refined samples/s "
           f"({stats['refine_seconds']:.2f} s refining {SYNTH_N}), "
           f"{stats['images_per_s']:.3f} generated images/s end to end "
           f"({stats['seconds']:.2f} s) on {gpu_line}", flush=True)
@@ -839,7 +897,7 @@ def synth_phase(assets, gpu_line: str, profile: bool = False) -> dict:
                   pen_refined=pen1.tolist())
     if profile:
         device = torch.device(DEVICE)
-        refine = synth_gen._make_refine(manos_to(assets, device), SYNTH_ITERS, device)
+        refine = synth_gen._make_refine(manos_to(assets, device), SYNTH_ITERS, device, prior)
         with torch.no_grad():
             raw = synth_gen._sample_raw(torch.Generator(device=device).manual_seed(1), 1)
         result["profile"] = profile_phase(
@@ -2182,12 +2240,14 @@ def serve_phase(cfg, assets, gpu_line: str, tag: str, n_images: int = BATCH,
     return result
 
 
-def train_run_phase(cfg, assets, gpu_line: str, tag: str, steps: int) -> dict:
+def train_run_phase(cfg, assets, gpu_line: str, tag: str, steps: int, check=None) -> dict:
     """`apps.train` on `cfg`, `--synthetic`, `steps` steps on the card (no
     eval, no checkpoint between). Held: exactly 2x the model's B2 calls a
     forward a step (forward and dx), all on `wgmma`, and no B1 (training
     keeps the plain attention, as JAX does); every logged term finite, none
-    skipped. Prints images/s (the train app's median)."""
+    skipped; and `check(run)`, given the app's result while its final
+    checkpoint (`run["checkpoint"]`) exists. Prints images/s (the train
+    app's median)."""
     import tempfile
 
     import numpy as np
@@ -2205,6 +2265,8 @@ def train_run_phase(cfg, assets, gpu_line: str, tag: str, steps: int) -> dict:
         run = train_app.main(["--cfg", yaml, "--synthetic", "--synth_n", str(TRAIN_SYNTH_N),
                               "--steps", str(steps), "--device", DEVICE])
         launches = _launches()
+        if check is not None:
+            check(run)
     n_steps = run["final_step"]
     want = {"conv3x3": per_step * n_steps, "fused_mha": 0, "sdf_grid": 0}
     _check_run_launches(f"{tag} training", launches, want,
@@ -2269,9 +2331,350 @@ def hrnet_path_phase(assets, gpu_line: str, flagship_cfg) -> tuple:
     return rows, bwd, dict(serve=serve, parity=errs, train=train)
 
 
+def _norm1_decayed(cfg):
+    """A `train_run_phase` check for the Chebyshev trunk: no gradient reaches
+    a block's norm1 (the reference computes it and drops it), so AdamW
+    moves it by weight decay alone, as optax does: every norm1 weight of
+    the final checkpoint equals one factor, prod over the steps of
+    (1 - lr_t·wd) (the trunk's init is 1), every bias stays 0."""
+    from renderih_tpu_torch.train.state import checkpoint_state_dict, make_schedule
+
+    def check(run):
+        sd = checkpoint_state_dict(run["checkpoint"])
+        sched = make_schedule(cfg, TRAIN_SYNTH_N // cfg.train.batch_size)
+        want = 1.0
+        for step in range(run["final_step"]):
+            want *= 1.0 - sched(step) * cfg.train.weight_decay
+        names = [k for k in sd if ".GCN_blocks." in k and ".norm1." in k]
+        if not names:
+            raise AssertionError("no Chebyshev norm1 in the checkpoint")
+        # the decay moves each weight by (1 - want), some tens of float32
+        # steps at 1: held to 5% of that (rounding of the step-by-step product)
+        if not 1.0 - want > 1e-6:
+            raise AssertionError(f"the run's decay moves norm1 by {1.0 - want:.3e} only")
+        for name in names:
+            t = sd[name]
+            if name.endswith("bias"):
+                bad = bool(t.any())
+            else:
+                bad = float(((1.0 - t) - (1.0 - want)).abs().max()) > 0.05 * (1.0 - want)
+            if bad:
+                raise AssertionError(f"{name}: {t.min():.8f}..{t.max():.8f}, expected decay "
+                                     f"alone: weights {want:.8f}, biases 0")
+        print(f"[norm1] {len(names)} norm1 tensors of the Chebyshev blocks after "
+              f"{run['final_step']} AdamW steps: weights all {want:.8f} = prod(1 - lr_t·wd), "
+              f"biases 0 (decay alone, as optax)", flush=True)
+
+    return check
+
+
+def paired_parity_phase(cfg, assets, tag: str) -> dict:
+    """The `paired_lr` model of `cfg` and the unpaired one on the card, f32
+    (TF32 off), the paired one loaded from the unpaired one's state_dict:
+    outputs within `PATH_RTOL` of each output's largest value on 4
+    images."""
+    import copy
+
+    import numpy as np
+
+    from renderih_tpu_torch.serve import InferenceEngine
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.train.precision = "f32"
+    unpaired_cfg = copy.deepcopy(cfg32)
+    unpaired_cfg.model.paired_lr = False
+    n = 4
+    size = cfg.model.img_size
+    images = np.random.default_rng(3).integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    unpaired = InferenceEngine(unpaired_cfg, assets=assets, device=DEVICE, buckets=(n,), seed=0)
+    state = {k: v.cpu() for k, v in unpaired.model.state_dict().items()}
+    # another seed: the paired weights must come from the state_dict
+    paired = InferenceEngine(cfg32, assets=assets, state_dict=state, device=DEVICE,
+                             buckets=(n,), seed=1)
+    if set(paired.model.state_dict()) != set(state):
+        raise AssertionError(f"{tag}: the paired state_dict's keys are not the unpaired ones")
+    want, got = unpaired.predict(images), paired.predict(images)
+    errs = {}
+    for key, ref in want.items():
+        errs[key] = float(np.abs(got[key] - ref).max()) / max(float(np.abs(ref).max()), 1e-6)
+        if not errs[key] <= PATH_RTOL:
+            raise AssertionError(f"{tag} {key}: paired vs unpaired rel max|Δ| {errs[key]:.3e}")
+    print(f"[{tag}] paired vs unpaired on the card from one state_dict, f32, TF32 "
+          f"off, {n} images: max|Δ| / max|ref| per output: "
+          + ", ".join(f"{k}={v:.2e}" for k, v in errs.items()) + f" (limit {PATH_RTOL:g})",
+          flush=True)
+    return errs
+
+
+def variant_path_phase(assets, gpu_line: str, flagship_cfg, profile: bool = False) -> dict:
+    """The decoder variants (see the module docstring, phase 18); with
+    `profile`, each served path's predict at the largest bucket under the
+    profiler, as phase 3's."""
+    import copy
+
+    cheby = copy.deepcopy(flagship_cfg)
+    cheby.model.use_cheby = True
+    paired = copy.deepcopy(cheby)
+    paired.model.paired_lr = True
+    if kernel_shapes(paired, assets) != kernel_shapes(cheby, assets):
+        raise AssertionError("paired_lr changed the trunk's kernel calls")
+    out = {}
+    for tag, cfg in (("cheby", cheby), ("paired-cheby", paired)):
+        out[tag] = dict(serve=serve_phase(cfg, assets, gpu_line, f"{tag}-serve",
+                                          profile=profile),
+                        parity=parity_phase(cfg, assets, tag=f"{tag}-parity"),
+                        train=train_run_phase(cfg, assets, gpu_line, f"{tag}-train",
+                                              VARIANT_TRAIN_STEPS, check=_norm1_decayed(cfg)))
+    out["paired-cheby"]["paired_parity"] = paired_parity_phase(paired, assets,
+                                                               "paired-cheby-vs-unpaired")
+    return out
+
+
+def _flat_outputs(out) -> list:
+    """A module's outputs (a tensor, or tuples, lists and dicts of them) as
+    one list of tensors."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = [out[k] for k in sorted(out)]
+    return [t for o in out for t in _flat_outputs(o)]
+
+
+def _card_vs_cpu(label: str, module, inputs: list, grads: bool = False) -> float:
+    """`module` (built on the CPU) on `inputs` on the CPU and, a copy, on the
+    card: every output within `PATH_RTOL` of its largest value; with
+    `grads`, also the gradient of the sum of squares of the outputs with
+    respect to each input and parameter. Returns the worst relative gap."""
+    import copy
+
+    import torch
+
+    def run(mod, xs):
+        xs = [x.clone().requires_grad_(grads) if x.is_floating_point() else x for x in xs]
+        outs = _flat_outputs(mod(*xs))
+        if not grads:
+            return [o.detach() for o in outs]
+        sum(o.float().pow(2).sum() for o in outs).backward()
+        return ([o.detach() for o in outs] + [x.grad for x in xs if x.requires_grad]
+                + [p.grad for p in mod.parameters() if p.grad is not None])
+
+    dev = torch.device(DEVICE)
+    with torch.set_grad_enabled(grads):
+        want = run(module, inputs)
+        got = run(copy.deepcopy(module).to(dev), [x.to(dev) for x in inputs])
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{label} tensor {i}: shape {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)}, or non-finite")
+        rel = float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+        worst = max(worst, rel)
+        if not rel <= PATH_RTOL:
+            raise AssertionError(f"{label} tensor {i}: card vs CPU rel max|Δ| {rel:.3e}")
+    return worst
+
+
+def library_phase(assets, gpu_line: str) -> tuple:
+    """The library modules outside `HandNet` (see the module docstring,
+    phase 19): (B1 rows at InterPoint's shapes, result)."""
+    import torch
+
+    from renderih_tpu_torch.config import Config
+    from renderih_tpu_torch.losses import adapt, focal
+    from renderih_tpu_torch.mano.params import to_device
+    from renderih_tpu_torch.models import aux_nets, experimental_attn, ktd
+    from renderih_tpu_torch.ops.rotation import rodrigues
+
+    dev = torch.device(DEVICE)
+    m = Config().model
+    widths, verts = tuple(m.gcn_out_dims), assets.left.verts_nums
+    heads = 8  # InterPoint's default
+    g = torch.Generator(device=dev).manual_seed(19)
+    counts = {(v, v, heads, w // heads): 2 for v, w in zip(verts, widths)}
+    rows = mha_rows(counts, g, label="InterPoint")
+    # the rows' unit on the card: one forward of each InterPoint at BATCH
+    for counter in _counters():
+        counter.reset()
+    with torch.no_grad():
+        for w, v in zip(widths, verts):
+            x = torch.randn(BATCH, v, w, device=dev, generator=g)
+            experimental_attn.InterPoint(w, v, heads).to(dev).eval()(x, x)
+    unit_launches = _launches()
+    want = {"conv3x3": 0, "fused_mha": sum(counts.values()), "sdf_grid": 0}
+    _check_run_launches(f"InterPoint at batch {BATCH} (card run)", unit_launches, want,
+                        must_launch=("fused_mha",))
+    print(f"[library] one InterPoint forward at each width, batch {BATCH}, on the card: "
+          f"{unit_launches['fused_mha']} B1 launches (expected {want['fused_mha']}, at the "
+          f"shapes timed above)", flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+    class _Fn(torch.nn.Module):
+        """`fn(*inputs)`, or `fn(module, *inputs)`, as a module."""
+
+        def __init__(self, fn, module=None):
+            super().__init__()
+            self.fn, self.module = fn, module
+
+        def forward(self, *xs):
+            return self.fn(*xs) if self.module is None else self.fn(self.module, *xs)
+
+    torch.manual_seed(19)  # the modules' default init
+    gen = torch.Generator().manual_seed(19)
+    randn = lambda *shape: torch.randn(*shape, generator=gen)
+    b = LIB_BATCH
+    checks = {}
+    for counter in _counters():
+        counter.reset()
+    for w, v in zip(widths, verts):
+        lf, rf = randn(b, v, w), randn(b, v, w)
+        checks[f"InterPoint {w}x{v}"] = _card_vs_cpu(
+            f"InterPoint {w}", experimental_attn.InterPoint(w, v, heads).eval(), [lf, rf])
+        checks[f"LinearCrossAttention {w}x{v}"] = _card_vs_cpu(
+            f"LinearCrossAttention {w}", experimental_attn.LinearCrossAttention(w).eval(),
+            [lf, rf])
+    attn_launches = _launches()
+    want = {"conv3x3": 0, "fused_mha": 4 * len(widths), "sdf_grid": 0}
+    _check_run_launches("library attention (card runs)", attn_launches, want,
+                        must_launch=("fused_mha",))
+
+    head = ktd.KTDHead(2048).eval()  # the ResNet-50 global feature
+    with torch.no_grad():  # the chain's near-0 init scaled up: poses far from 0
+        for lin in (head.decshape, head.deccam, *head.joint_reg):
+            lin.weight.mul_(300.0)
+    checks["KTDHead"] = _card_vs_cpu("KTDHead", head, [randn(b, 2048)])
+    with torch.no_grad():
+        pose6d, shape, cam = head(randn(b, 2048))
+
+    class _KTDMano(torch.nn.Module):
+        def __init__(self, mano):
+            super().__init__()
+            self.mano = mano
+
+        def _apply(self, fn, recurse=True):  # .to(device) moves the MANO model
+            self.mano = to_device(self.mano, fn(torch.zeros(1)).device)
+            return self
+
+        def forward(self, p, s, c):
+            return ktd.ktd_mano_outputs(self.mano, p, s, c, m.img_size)
+
+    checks["ktd_mano_outputs"] = _card_vs_cpu("ktd_mano_outputs", _KTDMano(assets.right.mano),
+                                              [pose6d, shape, cam], grads=True)
+    nb = 2  # the conv nets at a ResNet-50 pyramid's widths, 256² input
+    pyramid = [randn(nb, c, 256 // s, 256 // s) for c, s in
+               ((2048, 32), (1024, 16), (512, 8), (256, 4))]
+    checks["FPN"] = _card_vs_cpu(
+        "FPN", _Fn(lambda fpn, *maps: fpn(list(maps)), aux_nets.FPN((2048, 1024, 512, 256))),
+        pyramid)
+    checks["CBAM"] = _card_vs_cpu("CBAM", aux_nets.CBAM(256).eval(), [randn(nb, 256, 32, 32)])
+    checks["HourglassHead"] = _card_vs_cpu("HourglassHead", aux_nets.HourglassHead(256).eval(),
+                                           [randn(nb, 256, 64, 64)])
+    checks["CrossHandInjection"] = _card_vs_cpu(
+        "CrossHandInjection", aux_nets.CrossHandInjection(256, 256).eval(),
+        [randn(nb, 256, 16, 16), randn(nb, 256, 16, 16)])
+    checks["PoseDiscriminator"] = _card_vs_cpu(
+        "PoseDiscriminator", aux_nets.PoseDiscriminator().eval(),
+        [rodrigues(randn(b, 15, 3))], grads=True)
+
+    hms = randn(b, 21, 64, 64) * 3
+    target = (torch.rand(b, 21, 64, 64, generator=gen) > 0.9).float()
+    checks["sigmoid_focal_loss"] = _card_vs_cpu(
+        "sigmoid_focal_loss", _Fn(focal.sigmoid_focal_loss), [hms, target], grads=True)
+    checks["dice_loss"] = _card_vs_cpu(
+        "dice_loss", _Fn(lambda x, t: focal.dice_loss(torch.sigmoid(x), t)),
+        [hms, target], grads=True)
+
+    src, tgt = randn(b, 2048), randn(b, 2048)
+    checks["domain_adaptation_loss"] = _card_vs_cpu(
+        "domain_adaptation_loss",
+        _Fn(lambda disc, s, t: adapt.domain_adaptation_loss(disc, s, t, lam=0.5),
+            adapt.DomainDiscriminator(2048)), [src, tgt], grads=True)
+    # the reversal on the card: the features' gradient is -lam times the
+    # gradient of the same loss without it
+    disc = adapt.DomainDiscriminator(2048).to(dev)
+    feats = torch.cat([src, tgt]).to(dev).requires_grad_(True)
+    labels = torch.cat([torch.ones(b), torch.zeros(b)]).to(dev)
+    bce = lambda x: torch.nn.functional.binary_cross_entropy_with_logits(disc(x), labels)
+    plain = torch.autograd.grad(bce(feats), feats)[0]
+    reversed_ = torch.autograd.grad(bce(adapt.gradient_reversal(feats, 0.5)), feats)[0]
+    gap = float((reversed_ + 0.5 * plain).abs().max()) / float(plain.abs().max())
+    if not gap <= 1e-6:
+        raise AssertionError(f"gradient_reversal: the gradient is not -0.5 x the plain one "
+                             f"({gap:.3e})")
+    checks["gradient_reversal"] = gap
+    print(f"[library] card (f32, TF32 off) vs CPU, batch {b} (conv nets {nb}), at the "
+          f"decoder's widths {widths} on {verts} vertices: worst rel max|Δ| per module "
+          + ", ".join(f"{k}={v:.2e}" for k, v in checks.items())
+          + f" (limit {PATH_RTOL:g}; gradient_reversal: -lam x the plain gradient, 1e-6); "
+          f"B1 launches in the attention modules {attn_launches['fused_mha']} (expected "
+          f"{want['fused_mha']}: D = " + "/".join(str(w // heads) for w in widths)
+          + " in InterPoint, " + "/".join(str(w // 4) for w in widths)
+          + f" in LinearCrossAttention) on {gpu_line}", flush=True)
+    torch.cuda.empty_cache()
+    return rows, dict(checks=checks, launches=attn_launches, unit_launches=unit_launches)
+
+
+def gan_phase(assets, gpu_line: str) -> dict:
+    """The GAN pose prior (see the module docstring, phase 20)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.optimize.geo import (
+        POSE_PRIOR_PATH,
+        load_pose_prior,
+        make_gan_pose_prior,
+    )
+    from renderih_tpu_torch.tools import train_pose_prior
+
+    synth = synth_phase(assets, gpu_line, prior="gan", tag="gan-synth")
+    params = load_pose_prior(POSE_PRIOR_PATH)
+    priors = {d: make_gan_pose_prior(params, d) for d in ("cpu", DEVICE)}
+    rng = np.random.default_rng(20)
+    poses = (rng.normal(size=(8, 45)) * np.linspace(0.3, 1.5, 8)[:, None]).astype(np.float32)
+    worst_e = worst_g = 0.0
+    for pose in poses:
+        res = {}
+        for d, prior in priors.items():
+            x = torch.from_numpy(pose).to(d).requires_grad_(True)
+            e = prior(x)
+            e.backward()
+            res[d] = (float(e.detach()), x.grad.cpu().numpy())
+        (e_cpu, g_cpu), (e_card, g_card) = res["cpu"], res[DEVICE]
+        worst_e = max(worst_e, abs(e_card - e_cpu) / max(1.0, abs(e_cpu)))
+        worst_g = max(worst_g, float(np.abs(g_card - g_cpu).max()) / max(1.0, np.abs(g_cpu).max()))
+    if not (worst_e <= 1e-5 and worst_g <= 1e-5):
+        raise AssertionError(f"GAN prior card vs CPU: energy {worst_e:.3e}, gradient "
+                             f"{worst_g:.3e} (limit 1e-5)")
+    print(f"[gan-prior] energy and gradient of the shipped discriminator's prior on 8 seeded "
+          f"poses, card vs CPU (f32, TF32 off): rel max|Δ| {worst_e:.2e} / {worst_g:.2e} "
+          f"(limit 1e-5)", flush=True)
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        run = train_pose_prior.main(["--out", os.path.join(tmp, "prior.npz"), "--steps",
+                                     str(PRIOR_STEPS), "--device", DEVICE])
+    losses = run["losses"]
+    if not (np.isfinite(losses).all() and losses[-50:].mean() < 0.5 * losses[:10].mean()):
+        raise AssertionError(f"train_pose_prior: loss {losses[:10].mean():.4f} -> "
+                             f"{losses[-50:].mean():.4f}")
+    print(f"[gan-prior] train_pose_prior --steps {PRIOR_STEPS} on the card: LSGAN loss "
+          f"{losses[:10].mean():.4f} (steps 1-10) -> {losses[-50:].mean():.4f} (last 50), "
+          f"accuracy {run['accuracy']:.3f}; mean realism logit plausible "
+          f"{run['real_logit']:.3f} > randomized {run['fake_logit']:.3f}; "
+          f"{run['steps_per_s']:.1f} steps/s on {gpu_line}", flush=True)
+    return dict(synth=synth, energy_gap=worst_e, grad_gap=worst_g,
+                train=dict(run, losses=losses.tolist()))
+
+
 def _summary(rows: list, launches: int) -> dict:
     """One kernel's totals over the launches of one unit of its path (a
-    flagship forward at batch 256; a refined sample)."""
+    flagship forward at batch 256; a refined sample; one forward of each
+    `InterPoint` width at batch 256)."""
     def total(key):
         return sum(r[key] * r["launches_per_forward"] for r in rows)
 
@@ -2378,6 +2781,9 @@ def run(json_path: str | None, profile: bool) -> int:
     http = http_phase(cfg, assets, gpu_line)
     vit_rows, vit = vit_path_phase(assets, gpu_line, cfg)
     hrnet_rows, hrnet_bwd, hrnet = hrnet_path_phase(assets, gpu_line, cfg)
+    variants = variant_path_phase(assets, gpu_line, cfg, profile)
+    lib_rows, library = library_phase(assets, gpu_line)
+    gan = gan_phase(assets, gpu_line)
     per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
     b3_ms = synth["per_sample"] * on_path[0]["ms"]
     print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
@@ -2414,6 +2820,11 @@ def run(json_path: str | None, profile: bool) -> int:
         dict(name="conv3x3_same", path="hrnet_train", route="cuda",
              source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_train_summary(hrnet_bwd, hrnet["train"]["launches"]["conv3x3"])),
+        dict(name="fused_mha", path="interpoint", route="cuda",
+             source=f"{src}/csrc/fused_attention.cu",
+             replaces="renderih_tpu/kernels/fused_attention.py:43",
+             **_summary([r for r in lib_rows if r["dtype"] == "float32"],
+                        library["unit_launches"]["fused_mha"])),
         dict(name="sdf_grid", path="synth", route="cuda", source=f"{src}/csrc/sdf.cu",
              replaces="renderih_tpu/kernels/sdf_pallas.py:124",
              **dict(_summary(on_path, synth["launches"]["sdf_grid"]),
@@ -2431,7 +2842,8 @@ def run(json_path: str | None, profile: bool) -> int:
                        "aux_serve": aux_serve, "http_path": http,
                        "vit_rows": vit_rows, "vit_path": vit, "hrnet_rows": hrnet_rows,
                        "hrnet_conv_backward": hrnet_bwd, "hrnet_path": hrnet,
-                       "kernels": kernels}, f, indent=1,
+                       "variants": variants, "interpoint_rows": lib_rows,
+                       "library": library, "gan": gan, "kernels": kernels}, f, indent=1,
                       default=float)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
@@ -2447,8 +2859,9 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one flagship "
                              "predict at the largest bucket, one refined sample, "
-                             "one training step, one eval batch and one recipe step "
-                             "with and without the aux heads (torch.profiler)")
+                             "one training step, one eval batch, one recipe step "
+                             "with and without the aux heads and one predict of each "
+                             "decoder variant (torch.profiler)")
     args = parser.parse_args()
     try:
         return run(args.json, args.profile)

@@ -52,6 +52,13 @@ class HandAssets:
         counts = self.graph.node_counts
         return (counts[-1], counts[-2], counts[-3])
 
+    @property
+    def laplacians_coarse(self) -> tuple:
+        """The three coarsest dense rescaled Laplacians, coarsest first (one
+        per decoder stage of the `use_cheby` trunk), as CPU tensors."""
+        laps = self.graph.laplacians
+        return tuple(torch.from_numpy(np.asarray(laps[i], np.float32)) for i in (-1, -2, -3))
+
 
 @dataclass(frozen=True)
 class Assets:

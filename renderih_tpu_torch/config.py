@@ -46,8 +46,9 @@ class ModelConfig:
     # Auxiliary heatmap/mask/densepose heads (off in the flagship recipe,
     # matching `core/Loss.py:210-211`).
     with_aux_heads: bool = False
-    # Paired L/R decoder execution (hand-stacked trunk, same math). Not
-    # ported yet: the port's model raises NotImplementedError when set.
+    # Paired L/R decoder execution: the JAX package's hand-stacked trunk.
+    # The port builds the unpaired trunk under it (the same function and
+    # checkpoint layout); a paired JAX tree loads into it.
     paired_lr: bool = False
     # Keep the dual-graph decoder in float32 even under the bf16 precision
     # policy. The decoder is a small fraction of the FLOPs (encoder convs

@@ -6,8 +6,8 @@
 // Replaces renderih_tpu/kernels/fused_attention.py:_mha_kernel (the Pallas
 // kernel behind every attention core of the dual-graph decoder and of the
 // ViT encoders). Same contract: max-subtracted softmax, f32 accumulation,
-// output in q's dtype, no mask, no dropout, forward only. D in {16, 32, 64,
-// 96, 128}; any N, M >= 1.
+// output in q's dtype, no mask, no dropout, forward only. D in {8, 16, 32,
+// 64, 96, 128}; any N, M >= 1.
 //
 // What bounds it on an H100: bytes. The streams are short (N, M from 61 to
 // 308 tokens in the decoder, 256 keys in the ViT), so a (batch, head) pair
@@ -91,6 +91,16 @@
 //   D = 128, one block an SM. Registers a thread (ptxas, none spilled):
 //   f32 214 / 246, bf16 190 / 218 at D = 96 / 128 (launch bounds per
 //   instance: Layout::kMinBlocks).
+// - D = 8 (the experimental InterPoint's 8 heads at width 64): in f32 one
+//   k-step of m16n8k8 on QK^T and one 8-wide d-tile on P.V, as at larger D.
+//   bf16's m16n8k16 wants k = 16 on QK^T: Q's and K's fragments are
+//   zero-padded to 16 in registers (their upper 8 columns are zeros, which
+//   leaves Q.K^T as it is), and P.V's n = 8 is native, one d-tile from
+//   ldmatrix.x2.trans. Rows are unpadded there (K and V rows of 8 halves, K
+//   rows of 8 floats): 16 B or 32 B apart, every fragment load and ldmatrix
+//   row falls on distinct banks; f32 V keeps D + 4. A bf16 chunk is 64
+//   16-byte pieces of K (and of V) for 128 threads, so half the threads
+//   copy nothing.
 // - Ragged edges: rows past N load zeros and are not stored; a warp with no
 //   row computes nothing but still copies its share and meets the barriers.
 //
@@ -119,8 +129,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <typename T, int D>
 struct Layout {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kLdK = D + 8;               // elements a K row
-  static constexpr int kLdV = kF32 ? D + 4 : D + 8;  // elements a V row
+  static constexpr int kLdK = D == 8 ? D : D + 8;  // elements a K row
+  static constexpr int kLdV = kF32 ? D + 4 : kLdK;   // elements a V row
   static constexpr int kStages = D >= 64 ? 2 : 3;
   // f32 P.V: a second accumulator for 3xTF32's small terms where registers
   // allow (D <= 32), so that no chain of dependent mma is longer than 16
@@ -300,17 +310,22 @@ struct Warp<float, D> {
 
 template <int D>
 struct Warp<__nv_bfloat16, D> {
-  uint32_t qa[D / 16][4];  // Q's A fragments (bf16 pairs)
+  static constexpr int kKS = (D + 15) / 16;  // k-steps of 16; D = 8 pads to one
+  uint32_t qa[kKS][4];                       // Q's A fragments (bf16 pairs)
 
   __device__ __forceinline__ void load_q(const __nv_bfloat16* r0, const __nv_bfloat16* r1,
                                          int t) {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < kKS; ++ks) {
       const int d = 16 * ks + 2 * t;
       qa[ks][0] = r0 ? *reinterpret_cast<const uint32_t*>(r0 + d) : 0u;
       qa[ks][1] = r1 ? *reinterpret_cast<const uint32_t*>(r1 + d) : 0u;
-      qa[ks][2] = r0 ? *reinterpret_cast<const uint32_t*>(r0 + d + 8) : 0u;
-      qa[ks][3] = r1 ? *reinterpret_cast<const uint32_t*>(r1 + d + 8) : 0u;
+      if constexpr (D == 8) {  // columns 8..15: the zero padding
+        qa[ks][2] = qa[ks][3] = 0u;
+      } else {
+        qa[ks][2] = r0 ? *reinterpret_cast<const uint32_t*>(r0 + d + 8) : 0u;
+        qa[ks][3] = r1 ? *reinterpret_cast<const uint32_t*>(r1 + d + 8) : 0u;
+      }
     }
   }
 
@@ -318,12 +333,12 @@ struct Warp<__nv_bfloat16, D> {
                                      int t) const {
     constexpr int ld = Layout<__nv_bfloat16, D>::kLdK;
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < kKS; ++ks) {
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         const uint32_t* b =
             reinterpret_cast<const uint32_t*>(ks_ + (nt * 8 + g) * ld + 16 * ks + 2 * t);
-        mma_bf16(s[nt], qa[ks], b[0], b[4]);
+        mma_bf16(s[nt], qa[ks], b[0], D == 8 ? 0u : b[4]);
       }
     }
   }
@@ -343,15 +358,23 @@ struct Warp<__nv_bfloat16, D> {
                              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
                              pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
                              pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+      if constexpr (D == 8) {  // one d-tile: matrices keys +0 / +8 (lanes 0-15)
+        uint32_t b[2];
+        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+                     : "=r"(b[0]), "=r"(b[1])
+                     : "r"(smem_u32(vs + (16 * kk + row) * ld)));
+        mma_bf16(o[0], a, b[0], b[1]);
+      } else {
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-            : "r"(smem_u32(vs + (16 * kk + row) * ld + 16 * dp + col)));
-        mma_bf16(o[2 * dp], a, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t b[4];
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+              : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+              : "r"(smem_u32(vs + (16 * kk + row) * ld + 16 * dp + col)));
+          mma_bf16(o[2 * dp], a, b[0], b[1]);
+          mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+        }
       }
     }
   }
@@ -386,11 +409,14 @@ __device__ __forceinline__ void load_chunk(unsigned char* stage, const T* kb, co
   using L = Layout<T, D>;
   constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte piece
   constexpr int kPerRow = D / kVec;
-  static_assert(kBK * kPerRow % kThreads == 0, "every thread copies alike");
+  constexpr int kPieces = kBK * kPerRow;
+  static_assert(kPieces % kThreads == 0 || kPieces < kThreads,
+                "every thread copies alike, or a piece at most");
   const unsigned ks = smem_u32(stage), vs = ks + L::kVBytes;
 #pragma unroll
-  for (int r = 0; r < kBK * kPerRow / kThreads; ++r) {
+  for (int r = 0; r < (kPieces + kThreads - 1) / kThreads; ++r) {
     const int i = threadIdx.x + r * kThreads;
+    if (kPieces < kThreads && i >= kPieces) break;  // bf16 D = 8
     const int j = i / kPerRow, c = (i % kPerRow) * kVec;
     const bool valid = j0 + j < M;
     const size_t off = valid ? (size_t)(j0 + j) * ld + c : 0;
@@ -549,6 +575,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int N,
            int H, int D, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 8: return static_cast<int>(launch_d<T, 8>(q, k, v, out, B, N, M, H, s));
     case 16: return static_cast<int>(launch_d<T, 16>(q, k, v, out, B, N, M, H, s));
     case 32: return static_cast<int>(launch_d<T, 32>(q, k, v, out, B, N, M, H, s));
     case 64: return static_cast<int>(launch_d<T, 64>(q, k, v, out, B, N, M, H, s));
@@ -576,6 +603,7 @@ extern "C" int fused_mha_bf16(const void* q, const void* k, const void* v,
 // bfloat16), for reports; -1 for a D it does not take.
 extern "C" int fused_mha_smem_bytes(int bf16, int D) {
   switch (D) {
+    case 8: return bf16 ? Layout<__nv_bfloat16, 8>::kSmem : Layout<float, 8>::kSmem;
     case 16: return bf16 ? Layout<__nv_bfloat16, 16>::kSmem : Layout<float, 16>::kSmem;
     case 32: return bf16 ? Layout<__nv_bfloat16, 32>::kSmem : Layout<float, 32>::kSmem;
     case 64: return bf16 ? Layout<__nv_bfloat16, 64>::kSmem : Layout<float, 64>::kSmem;

@@ -1,16 +1,43 @@
 """Vertex-axis graph operations over the binary-tree layout (counterpart
 of `renderih_tpu/graph/ops.py`).
 
-Pooling of size p is a stride-p window reduce over the vertex axis and
-upsampling is nearest-neighbour repetition (reference
-`models/model_zoo/graph_utils.py:25-54`); the permutations convert between
-mesh-vertex order and the padded GCN layout (`GCN_vert_convert`).
-`cheby_conv` belongs to the `use_cheby` variant and is not ported yet.
+`cheby_conv` is the K-order Chebyshev graph convolution of the
+`use_cheby` decoder on a dense rescaled Laplacian (reference
+`models/model_zoo/graph_utils.py:57-92`); its L.x products are plain
+matmuls, as in the JAX package. Pooling of size p is a stride-p window
+reduce over the vertex axis and upsampling is nearest-neighbour repetition
+(`graph_utils.py:25-54`); the permutations convert between mesh-vertex
+order and the padded GCN layout (`GCN_vert_convert`).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def cheby_basis(x: torch.Tensor, laplacian: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """The K Chebyshev bases T_k(L) x of x (..., V, F), interleaved as the
+    reference lays them out (`graph_utils.py:84-89`): x[..., f, k]
+    flattened to (..., V, F * K). `laplacian` (V, V), rescaled to the
+    spectrum [-1, 1]."""
+    bases = [x]
+    if k > 1:
+        x0, x1 = x, laplacian @ x
+        bases.append(x1)
+        for _ in range(2, k):
+            x0, x1 = x1, 2.0 * (laplacian @ x1) - x0
+            bases.append(x1)
+    return torch.stack(bases, dim=-1).flatten(-2)
+
+
+def cheby_conv(x: torch.Tensor, laplacian: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor | None = None, k: int = 2) -> torch.Tensor:
+    """K-order Chebyshev graph convolution: x (B, V, Fin), laplacian (V, V),
+    weight (Fin * K, Fout), bias (Fout,) -> (B, V, Fout). The decoder's
+    blocks hold the weight as a `Linear` (upstream's `fc1`, (Fout, Fin * K))
+    applied to `cheby_basis`."""
+    out = cheby_basis(x, laplacian, k) @ weight
+    return out if bias is None else out + bias
 
 
 def graph_pool_avg(x: torch.Tensor, p: int) -> torch.Tensor:

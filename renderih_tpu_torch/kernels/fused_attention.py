@@ -5,7 +5,7 @@ version.
 softmax(q k^T / sqrt(D)) v as (B, N, H*D) in q's dtype, the contract of
 `renderih_tpu/kernels/fused_attention.py:fused_mha`, whose `_mha_kernel`
 it replaces. The kernel (`csrc/fused_attention.cu`, Hopper tensor cores:
-3xTF32 in float32, bf16 in one pass) takes D in {16, 32, 64, 96, 128} in
+3xTF32 in float32, bf16 in one pass) takes D in {8, 16, 32, 64, 96, 128} in
 float32 or bfloat16; it says what bounds it and how.
 
 Dispatch: a CPU tensor takes the plain version (`mha_reference`); a CUDA
@@ -29,7 +29,7 @@ _SIGNATURES = {
     for t in ("f32", "bf16")
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (16, 32, 64, 96, 128)
+HEAD_DIMS = (8, 16, 32, 64, 96, 128)
 
 launches = _build.LaunchCounter()
 

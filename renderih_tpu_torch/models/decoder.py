@@ -7,7 +7,8 @@ Names follow the upstream state_dict: `gf_layer_left.{0,1}`, `dual_gcn.*`,
 `coord_head`, `avg_head`, `params_head`, `unsample_layer.weight` (sic).
 With `decoder="mano"` the MANO-parameter head `param_regressor` runs on
 each hand's final vertices (`decoder_lijun_newgraph.py`); its names are
-the JAX module's (no upstream checkpoint carries it).
+the JAX module's (no upstream checkpoint carries it). The trunk's
+variant `use_cheby` is `models/dual_graph.py`'s.
 """
 
 from __future__ import annotations
@@ -71,7 +72,9 @@ class GraphDecoder(nn.Module):
                  graph_layer_num: int = 4, n_heads: int = 4,
                  dropout: float = 0.05, num_verts: int = 778,
                  img_size: int = 256, bbox_dim: int = 0,
-                 with_mano_head: bool = False, dtype: torch.dtype = torch.float32):
+                 with_mano_head: bool = False, dtype: torch.dtype = torch.float32,
+                 use_cheby: bool = False, graph_k: int = 2,
+                 laplacians: tuple | None = None):
         super().__init__()
         self.verts_nums = tuple(verts_nums)
         self.img_size = img_size
@@ -84,7 +87,7 @@ class GraphDecoder(nn.Module):
         self.dual_gcn = DualGraph(
             self.verts_nums, tuple(gcn_in_dims), tuple(gcn_out_dims),
             tuple(img_sizes), tuple(img_dims), tuple(grid_f_dims), grid_size,
-            graph_layer_num, n_heads, dropout, dtype)
+            graph_layer_num, n_heads, dropout, dtype, use_cheby, graph_k, laplacians)
         c_out = gcn_out_dims[-1]
         # camera heads shared across hands (`decoder_lijun_graph.py:221-223`)
         self.avg_head = Linear(self.verts_nums[-1], 1)

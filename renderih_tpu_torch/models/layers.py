@@ -20,6 +20,22 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# std of a unit normal cut at ±2: flax's `variance_scaling` divides by it
+# so that the cut draw keeps the asked-for variance
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(mod: nn.Module, generator: torch.Generator | None = None) -> None:
+    """flax's default init of a Dense or Conv: `lecun_normal` on the weight
+    (a normal cut at ±2σ, σ rescaled so that the variance is 1/fan_in) and
+    a zero bias, drawn from `generator`."""
+    std = mod.weight[0].numel() ** -0.5 / _TRUNC_NORMAL_STD
+    nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    if mod.bias is not None:
+        mod.bias.zero_()
+
+
 def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
     return None if p is None else p.to(dtype)
 

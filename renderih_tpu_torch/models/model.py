@@ -32,7 +32,9 @@ from torch import nn
 from renderih_tpu_torch.assets import Assets
 from renderih_tpu_torch.config import Config
 from renderih_tpu_torch.models.decoder import DecoderOutput, GraphDecoder
+from renderih_tpu_torch.models.dual_graph import GcnResBlock
 from renderih_tpu_torch.models.hrnet import HRNetEncoder, HRNetMid
+from renderih_tpu_torch.models.layers import lecun_normal_
 from renderih_tpu_torch.models.resnet import AuxDecoderHead, ResNet, ResNetMid
 from renderih_tpu_torch.models.vit import ViTEncoder, ViTMid, vit_pyramid
 
@@ -55,21 +57,17 @@ def _check_supported(cfg: Config) -> None:
     if m.encoder.startswith("vit") and m.img_size != 256:
         raise ValueError(f"the ViT encoders need model.img_size 256 (a 16x16 "
                          f"token grid for PooledKVAttention), got {m.img_size}")
-    missing = [name for name, on in (
-        ("paired_lr", m.paired_lr),
-        ("use_cheby", m.use_cheby),
-        (f"decoder={m.decoder}", m.decoder not in ("graph", "mano")),
-    ) if on]
-    if missing:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(missing)} (the port runs the MLP graph "
-            "or mano decoder; see ROADMAP.md)")
+    if m.decoder not in ("graph", "mano"):
+        raise ValueError(f"unknown decoder {m.decoder} (graph or mano)")
 
 
 class HandNet(nn.Module):
-    """Encoder + mid projection + two-hand graph decoder."""
+    """Encoder + mid projection + two-hand graph decoder. `laplacians`
+    (left, right; each the three coarsest, coarsest first) feed the
+    `use_cheby` trunk."""
 
-    def __init__(self, cfg: Config, verts_nums: tuple, bbox_dim: int = 0):
+    def __init__(self, cfg: Config, verts_nums: tuple, bbox_dim: int = 0,
+                 laplacians: tuple | None = None):
         super().__init__()
         _check_supported(cfg)
         m = cfg.model
@@ -110,6 +108,9 @@ class HandNet(nn.Module):
             bbox_dim=bbox_dim,
             with_mano_head=m.decoder == "mano",
             dtype=torch.float32 if m.decoder_f32 else self.dtype,
+            use_cheby=m.use_cheby,
+            graph_k=m.graph_k,
+            laplacians=laplacians,
         )
         self.hms_head = self.dp_head = None
         if m.with_aux_heads:
@@ -148,18 +149,15 @@ def build_model(cfg: Config, assets: Assets, bbox_dim: int = 0) -> HandNet:
         raise ValueError("left/right graphs must coarsen to identical level "
                          f"sizes ({assets.left.verts_nums} vs "
                          f"{assets.right.verts_nums})")
-    return HandNet(cfg, assets.left.verts_nums, bbox_dim)
+    laps = ((assets.left.laplacians_coarse, assets.right.laplacians_coarse)
+            if cfg.model.use_cheby else None)
+    return HandNet(cfg, assets.left.verts_nums, bbox_dim, laps)
 
 
 def model_call_kwargs(assets: Assets, device: torch.device | str = "cpu") -> dict:
     """The static-asset arguments of `HandNet.forward`, on `device`."""
     return dict(pe_left=assets.left.pe.to(device),
                 pe_right=assets.right.pe.to(device))
-
-
-# std of a unit normal cut at ±2: flax's `variance_scaling` divides by it
-# so that the cut draw keeps the asked-for variance
-_TRUNC_NORMAL_STD = 0.87962566103423978
 
 
 @torch.no_grad()
@@ -170,21 +168,21 @@ def _init_params(model: HandNet, cfg: Config, assets: Assets,
     (a normal cut at ±2σ, σ rescaled so the variance is 1/fan_in), biases
     0, norms at identity, BN statistics (0, 1), position embeddings
     normal(0, 0.02), the upsample from the assets' initializer and, under
-    `zero_init_heads`, zero coord/params head weights. The aux heads, the
-    MANO regressor and the ViT and HRNet encoders follow the same rules
-    (`zero_init_heads` leaves the heads as drawn)."""
+    `zero_init_heads`, zero coord/params head weights; the Chebyshev
+    blocks' fc1/fc2 `xavier_uniform`, as JAX draws `cheby{1,2}_kernel`. The
+    aux heads, the MANO regressor and the ViT and HRNet encoders follow
+    the same rules (`zero_init_heads` leaves the heads as drawn)."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
-            fan_in = mod.weight[0].numel()
-            std = fan_in ** -0.5 / _TRUNC_NORMAL_STD
-            nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-            if mod.bias is not None:
-                mod.bias.zero_()
+            lecun_normal_(mod, generator)
         elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
             mod.reset_parameters()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, 0.02, generator=generator)
+    for mod in model.modules():
+        if isinstance(mod, GcnResBlock) and mod.use_cheby:
+            for fc in (mod.fc1, mod.fc2):
+                nn.init.xavier_uniform_(fc.weight, generator=generator)
     dec = model.decoder
     dec.unsample_layer.weight.copy_(assets.left.upsample_init)
     if cfg.model.zero_init_heads:

@@ -7,7 +7,10 @@ mirror the reference's `geo_optimizer_both_batch.py` / `geo_loss.py`:
 contact (matched vertex pairs, or anchors), repulsion along A's normals,
 SDF anti-penetration (`ops/sdf.py`; kernel B3 on the card, two fields per
 loss evaluation), edge preservation, pose/shape regularisation towards
-the start, per-joint angle limits and an optional naturalness prior.
+the start, per-joint angle limits and an optional naturalness prior: a
+Gaussian fitted to plausible poses, or the trained discriminator's
+(`make_gan_pose_prior`, the port's copy of the artifact at
+`POSE_PRIOR_PATH`).
 
 The optimiser is Adam (optax's `adam(lr)`: betas 0.9/0.999, eps 1e-8)
 over all eight tensors of both hands. Pose is axis-angle.
@@ -16,13 +19,16 @@ over all eight tensors of both hands. Pose is axis-angle.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from renderih_tpu_torch.mano.layer import mano_forward
 from renderih_tpu_torch.mano.params import to_device
+from renderih_tpu_torch.models.aux_nets import PoseDiscriminator
 from renderih_tpu_torch.ops.rotation import rodrigues
 from renderih_tpu_torch.ops.sdf import sdf_penetration_loss
 from renderih_tpu_torch.optimize.anchors import (
@@ -32,6 +38,7 @@ from renderih_tpu_torch.optimize.anchors import (
     search_anchor_pairs,
 )
 from renderih_tpu_torch.render.renderer import vertex_normals as _vertex_normals
+from renderih_tpu_torch.utils.weights import flax_module_state_dict
 
 
 class GeoWeights(NamedTuple):
@@ -111,6 +118,32 @@ def make_gaussian_pose_prior(poses_aa: torch.Tensor, eps: float = 1e-3):
     def prior(pose_aa: torch.Tensor) -> torch.Tensor:
         d = pose_aa - mean
         return d @ prec @ d
+
+    return prior
+
+
+# the trained discriminator shipped with the port (a copy of the JAX
+# package's artifact, made by `tools/train_pose_prior.py`)
+POSE_PRIOR_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                               "assets_data", "pose_prior.npz")
+
+
+def make_gan_pose_prior(params: dict, device: torch.device | str = "cpu"):
+    """Trained-discriminator naturalness energy (reference
+    `pose_data_optimize/Ver2Code/Discriminator/discrim.py:66-105`; the
+    weights from `tools/train_pose_prior.py`, as `load_pose_prior` reads
+    them). Returns a differentiable energy `pose_aa (45,) -> scalar` on
+    `device`: softplus of the negated mean per-joint plus mean overall
+    realism logit of `PoseDiscriminator` on the pose's rotations, so that
+    plausible poses sit near 0 and the gradient points toward realism."""
+    disc = PoseDiscriminator()
+    disc.load_state_dict(flax_module_state_dict(params))
+    disc.requires_grad_(False)
+    disc.to(device)
+
+    def prior(pose_aa: torch.Tensor) -> torch.Tensor:
+        per_joint, overall = disc(rodrigues(pose_aa.reshape(1, 15, 3)))
+        return F.softplus(-(per_joint.mean() + overall.mean()))
 
     return prior
 

@@ -5,7 +5,9 @@
      offset) and orthographic cameras;
   2. with `--optimize`, refine each sample with the contact/SDF optimiser
      (`optimize/geo.py`, anchor mode, 4 attempts of max(opt_iters // 4, 1)
-     Adam steps, SDF grid 16: kernel B3 on the card, 2 fields per step);
+     Adam steps, SDF grid 16: kernel B3 on the card, 2 fields per step),
+     with the Gaussian naturalness prior or, with `--prior gan`, the
+     trained discriminator's (`--prior_weights`, the port's copy by default);
   3. render RGB with random skin albedo, a random directional light with
      Blinn-Phong highlights and a procedural background, plus pixel noise;
   4. project the labels with the sampled cameras;
@@ -13,7 +15,7 @@
      `{split}_labels.npz` (LABEL_KEYS), the layout the packed-dataset
      readers load.
 
-    python -m renderih_tpu_torch.tools.synth_gen --out DIR --n 512 [--optimize]
+    python -m renderih_tpu_torch.tools.synth_gen --out DIR --n 512 [--optimize [--prior gan]]
     python -m renderih_tpu_torch.tools.synth_gen --out DIR --n 2 --device cpu
 
 Runs on the card unless `--device cpu` asks for the plain versions on the
@@ -40,8 +42,11 @@ from renderih_tpu_torch.ops.projection import orthographic_project
 from renderih_tpu_torch.ops.rotation import rodrigues
 from renderih_tpu_torch.optimize.anchors import make_synthetic_anchors
 from renderih_tpu_torch.optimize.geo import (
+    POSE_PRIOR_PATH,
     GeoWeights,
     HandVars,
+    load_pose_prior,
+    make_gan_pose_prior,
     make_gaussian_pose_prior,
     optimize_two_hands,
 )
@@ -68,7 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Adam iterations per sample for --optimize")
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--prior", choices=("gaussian", "gan"), default="gaussian",
-                   help="naturalness prior for --optimize (gan: not ported yet)")
+                   help="naturalness prior for --optimize: the analytic Gaussian, or "
+                        "the trained discriminator (tools/train_pose_prior.py artifact)")
+    p.add_argument("--prior_weights", default=POSE_PRIOR_PATH,
+                   help="npz artifact for --prior gan (default: the port's copy)")
     p.add_argument("--backgrounds", default=None,
                    help="directory of background images (not ported yet)")
     p.add_argument("--renderer", choices=("raster", "pathtrace"), default="raster",
@@ -134,12 +142,18 @@ def _finalize(raw: dict, gen: torch.Generator, assets, renderer) -> dict:
     )
 
 
-def _make_refine(assets, opt_iters: int, device: torch.device):
+def _make_refine(assets, opt_iters: int, device: torch.device, prior_kind: str = "gaussian",
+                 prior_weights: str = POSE_PRIOR_PATH):
     """The per-sample refinement (reference `pose_data_optimize` step):
-    anchor-based contact with the Gaussian naturalness prior."""
-    prior_gen = torch.Generator(device=device).manual_seed(1234)
-    prior = make_gaussian_pose_prior(
-        torch.randn((256, 45), generator=prior_gen, device=device) * 0.4)
+    anchor-based contact with a naturalness prior, the Gaussian or the
+    trained discriminator's (`prior_kind` "gan", weights from
+    `prior_weights`)."""
+    if prior_kind == "gan":
+        prior = make_gan_pose_prior(load_pose_prior(prior_weights), device)
+    else:
+        prior_gen = torch.Generator(device=device).manual_seed(1234)
+        prior = make_gaussian_pose_prior(
+            torch.randn((256, 45), generator=prior_gen, device=device) * 0.4)
     anchor_specs = tuple(
         make_synthetic_anchors(m.faces.cpu().numpy(), m.v_template.cpu().numpy())
         for m in (assets.left.mano, assets.right.mano))
@@ -182,8 +196,6 @@ def _make_refine(assets, opt_iters: int, device: torch.device):
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.prior == "gan":
-        raise NotImplementedError(f"--prior gan needs models/aux_nets.py, which {_WAITS}")
     if args.backgrounds:
         raise NotImplementedError(f"--backgrounds (BackgroundCorpus, cv2) {_WAITS}")
     if args.renderer == "pathtrace":
@@ -192,7 +204,8 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     assets = manos_to(load_assets(Config().assets), device)
     renderer = TwoHandRenderer(assets, IMG_SIZE, device=device)
-    refine = _make_refine(assets, args.opt_iters, device) if args.optimize else None
+    refine = (_make_refine(assets, args.opt_iters, device, args.prior, args.prior_weights)
+              if args.optimize else None)
 
     n = args.n
     os.makedirs(args.out, exist_ok=True)

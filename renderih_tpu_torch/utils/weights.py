@@ -5,9 +5,12 @@ variables as nested dicts of numpy arrays and returns the port's
 state_dict (torch tensors, upstream torch key layout). It is the port's
 own copy of the inverse mapping in
 `renderih_tpu/utils/checkpoint_convert.py` (`_inv_*`,
-`export_reference_checkpoint`), MLP decoder flavour, and of
-`convert_reference_hrnet` and `convert_vit_wrapper` for the HRNet and ViT
-encoders:
+`export_reference_checkpoint`), both decoder flavours (`use_cheby`), and
+of `convert_reference_hrnet` and `convert_vit_wrapper` for the HRNet and
+ViT encoders. A paired JAX tree (`paired_lr`: `graph_pair`,
+`img_ex_pair`, `LR_self_attn`, leaves stacked [left, right]) is unstacked
+into the upstream left/right keys, which the port's model (paired or
+not: one trunk) reads:
 
   * flax Dense kernel (in, out)        -> Linear weight (out, in)
   * flax Conv kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw)
@@ -25,9 +28,17 @@ The aux heads (`hms_head.*`, `dp_head.*`) and the MANO-parameter head
 modules': `{flat,up0,up1,up2}_{conv,bn}` and `final` in a head;
 `dense.{0,1}` (flax's `Dense_0`/`Dense_1`), `{pose,shape}_fc{1,2}` in the
 regressor.
+
+The library modules outside `HandNet` (`models/{ktd,experimental_attn,
+aux_nets}.py`, `losses/adapt.py`'s discriminator, the GAN pose prior's
+`PoseDiscriminator`) keep the JAX modules' names; `flax_module_state_dict`
+maps any of them, `ktd_state_dict_from_jax` and
+`aux_net_state_dict_from_jax` with their indexed families renamed.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -83,9 +94,26 @@ def _img_ex(sub, prefix, out):
     _self_attn(sub["attn"], f"{prefix}.attn.Attn", out)
 
 
+def _hand(tree, i: int):
+    """Hand i of a paired (hand-stacked) JAX subtree: every leaf's [i]."""
+    if isinstance(tree, dict):
+        return {k: _hand(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _sides(layer, left: str, right: str, pair: str) -> dict:
+    """{left name: subtree, right name: subtree} of a stage, unstacked from
+    its paired subtree (`paired_lr`: leaves (2, ...), [left, right]) when
+    it has one."""
+    if pair in layer:
+        return {left: _hand(layer[pair], 0), right: _hand(layer[pair], 1)}
+    return {left: layer[left], right: layer[right]}
+
+
 def _inter_attn(sub, prefix, out):
-    _self_attn(sub["L_self_attn"], f"{prefix}.L_self_attn_layer", out)
-    _self_attn(sub["R_self_attn"], f"{prefix}.R_self_attn_layer", out)
+    pair = _sides(sub, "L_self_attn", "R_self_attn", "LR_self_attn")
+    _self_attn(pair["L_self_attn"], f"{prefix}.L_self_attn_layer", out)
+    _self_attn(pair["R_self_attn"], f"{prefix}.R_self_attn_layer", out)
     for name in ("w_qs", "w_ks", "w_vs", "fc"):
         _linear(sub[name], f"{prefix}.{name}", out)
     _ln(sub["norm1"], f"{prefix}.layer_norm1", out)
@@ -95,10 +123,17 @@ def _inter_attn(sub, prefix, out):
 
 
 def _gcn_block(sub, prefix, out):
+    """MLP or Chebyshev block; a Chebyshev kernel (in * K, out) is upstream's
+    `fc{1,2}` Linear transposed (`checkpoint_convert.py:_inv_gcn_block`)."""
     for name in ("norm1", "norm2", "norm3"):
         _ln(sub[name], f"{prefix}.{name}", out)
-    for name in ("fc1", "fc2", "shortcut"):
-        _linear(sub[name], f"{prefix}.{name}", out)
+    _linear(sub["shortcut"], f"{prefix}.shortcut", out)
+    for i in (1, 2):
+        if f"cheby{i}_kernel" in sub:
+            _linear({"kernel": sub[f"cheby{i}_kernel"], "bias": sub[f"cheby{i}_bias"]},
+                    f"{prefix}.fc{i}", out)
+        else:
+            _linear(sub[f"fc{i}"], f"{prefix}.fc{i}", out)
 
 
 def _block(sub, stats, prefix, out):
@@ -231,9 +266,11 @@ def _decoder(dec, prefix, out):
     for lname, layer in dec["dual_gcn"].items():
         lp = f"{prefix}.dual_gcn.layers.{lname.split('_')[1]}"
         out[f"{lp}.position_embeddings.weight"] = _t(layer["position_embeddings"])
+        img_ex = _sides(layer, "img_ex_left", "img_ex_right", "img_ex_pair")
+        graph = _sides(layer, "graph_left", "graph_right", "graph_pair")
         for side in ("left", "right"):
-            _img_ex(layer[f"img_ex_{side}"], f"{lp}.img_ex_{side}", out)
-            for bname, block in layer[f"graph_{side}"].items():
+            _img_ex(img_ex[f"img_ex_{side}"], f"{lp}.img_ex_{side}", out)
+            for bname, block in graph[f"graph_{side}"].items():
                 _gcn_block(block,
                            f"{lp}.graph_{side}.GCN_blocks.{bname.split('_')[1]}",
                            out)
@@ -265,3 +302,55 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
         if head in params:
             _aux_head(params[head], batch_stats[head], head, out)
     return out
+
+
+def flax_module_state_dict(params: dict, rename=None) -> dict:
+    """A flax module's params (nested numpy) -> the state_dict of the port's
+    module of the same names: a Dense {kernel (in, out), bias} -> Linear, a
+    Conv {kernel (kh, kw, in, out), bias} -> Conv2d, a norm {scale, bias} ->
+    weight, bias, a `SelfAttn` or `MlpResBlock` subtree -> the decoder's
+    names (`_self_attn`, `_mlp_res`), any other leaf as it is. `rename`
+    maps a flax module name to the port's (an indexed family to a
+    ModuleList's entry, say)."""
+    rename = rename or (lambda name: name)
+    out: dict = {}
+
+    def walk(tree, prefix):
+        for name, sub in tree.items():
+            key = f"{prefix}{rename(name)}"
+            if not isinstance(sub, dict):
+                out[key] = _t(sub)
+            elif "kernel" in sub:
+                (_linear if np.ndim(sub["kernel"]) == 2 else _conv)(sub, key, out)
+            elif "scale" in sub:
+                _ln(sub, key, out)
+            elif "w_qs" in sub and "ff" in sub:
+                _self_attn(sub, key, out)
+            elif set(sub) == {"LayerNorm_0", "Dense_0", "Dense_1"}:
+                _mlp_res(sub, key, out)
+            else:
+                walk(sub, key + ".")
+
+    walk(params, "")
+    return out
+
+
+def _indexed(*families: str):
+    """rename for flax's `{family}{i}` names -> a ModuleList's `{family}.{i}`."""
+    pattern = re.compile(rf"^({'|'.join(families)})(\d+)$")
+    return lambda name: pattern.sub(r"\1.\2", name)
+
+
+def ktd_state_dict_from_jax(params: dict) -> dict:
+    """flax `KTDHead` params -> `models/ktd.py:KTDHead`'s state_dict."""
+    return flax_module_state_dict(params, _indexed("joint_reg"))
+
+
+def aux_net_state_dict_from_jax(params: dict) -> dict:
+    """flax params of an `aux_nets` module (FPN, CBAM, HourglassHead,
+    CrossHandInjection, PoseDiscriminator) -> the port module's state_dict."""
+    fpn = _indexed("lateral", "smooth")
+    cbam = {"Dense_0": "mlp.0", "Dense_1": "mlp.2"}
+    block = re.compile(r"^(\w+)_(conv|gn)$")
+    return flax_module_state_dict(
+        params, lambda name: cbam.get(name) or block.sub(r"blocks.\1.\2", fpn(name)))

@@ -146,6 +146,27 @@ def test_fused_mha_kernel_matches_plain_at_vit_shapes(cuda, b, n, m, h, d, q_sca
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,h,q_scale", [
+    # InterPoint's self-attention at the decoder's widths: 8 heads of 64 on
+    # the synthetic and the MANO vertex counts of the three stages
+    (3, 244, 244, 8, 1), (3, 252, 252, 8, 1), (4, 61, 61, 8, 1), (2, 122, 122, 8, 1),
+    # ragged N and M, one key, long M, large logits
+    (3, 17, 300, 4, 1), (2, 1, 1, 2, 1), (2, 8, 1000, 2, 1), (2, 125, 125, 4, 8)])
+def test_fused_mha_kernel_matches_plain_at_head_dim_8(cuda, b, n, m, h, q_scale, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = (q_scale * torch.randn(b, n, h, 8, device=cuda, generator=g)).to(dtype)
+    k, v = (torch.randn(b, m, h, 8, device=cuda, generator=g).to(dtype) for _ in range(2))
+    count = fused_attention.launches.value
+    got = fused_attention.fused_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.launches.value == count + 1
+    assert got.shape == (b, n, h * 8) and got.dtype == dtype
+    want = fused_attention.mha_reference(q.float(), k.float(), v.float())
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
 def test_fused_mha_off_the_16_byte_grid(cuda):
     """Contiguous views that start off the kernel's 16-byte copy grid give
     the same answer as aligned ones."""
@@ -168,7 +189,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         conv3x3.conv3x3_same(x.half(), w.half())
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3.conv3x3_same(x.transpose(1, 2), w)
-    q = torch.randn(1, 5, 4, 8, device=cuda)
+    q = torch.randn(1, 5, 4, 12, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fused_attention.fused_mha(q, q, q)
 
@@ -465,3 +486,80 @@ def test_synth_gen_on_the_card_launches_b3_per_refinement_step(cuda, tmp_path):
     assert result["device"].startswith("cuda")
     labels = np.load(tmp_path / "train_labels.npz")
     assert all(np.isfinite(labels[k]).all() for k in labels.files)
+
+
+@pytest.mark.parametrize("override,b1", [
+    ({"use_cheby": True}, 24), ({"paired_lr": True}, 24),
+    ({"paired_lr": True, "use_cheby": True}, 24)])
+def test_decoder_variants_on_card_match_cpu(cuda, override, b1):
+    """The Chebyshev and paired models on a small resnet18 config: f32 card
+    (kernels) vs CPU (plain versions), the launches a forward (`paired_lr`
+    builds the unpaired trunk), and a paired model against the unpaired one
+    from its upstream state_dict."""
+    base = {"encoder": "resnet18", "img_size": 128, "grid_size": 4, "graph_layer_num": 2}
+    cfg = load_config(overrides={"model": {**base, **override}, "train": {"precision": "f32"}})
+    assets = make_synthetic_assets(0)
+    imgs = np.random.default_rng(2).integers(0, 256, (3, 128, 128, 3), dtype=np.uint8)
+    card = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda)
+    n_conv, n_mha = conv3x3.launches.value, fused_attention.launches.value
+    got = card.predict(imgs)
+    assert conv3x3.launches.value - n_conv == 13
+    assert fused_attention.launches.value - n_mha == b1
+    wants = [InferenceEngine(cfg, assets=assets, buckets=(4,), device="cpu").predict(imgs)]
+    if "paired_lr" in override:
+        unpaired = load_config(overrides={
+            "model": {**base, **override, "paired_lr": False}, "train": {"precision": "f32"}})
+        sd = InferenceEngine(unpaired, assets=assets, buckets=(4,), device="cpu",
+                             seed=3).model.state_dict()
+        got = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda,
+                              state_dict=sd).predict(imgs)
+        wants = [InferenceEngine(unpaired, assets=assets, buckets=(4,), device=cuda,
+                                 state_dict=sd).predict(imgs)]
+    for want in wants:
+        for key, ref in want.items():
+            err = np.abs(got[key] - ref).max() / max(np.abs(ref).max(), 1e-6)
+            assert err <= 1e-4, f"{key}: rel max|Δ| {err:.3e}"
+
+
+@pytest.mark.parametrize("width,verts", [(256, 61), (128, 122), (64, 244)])
+def test_inter_point_on_card_matches_cpu(cuda, width, verts):
+    """InterPoint's 8 heads: B1 at D = 32, 16 and 8, two launches a call."""
+    from renderih_tpu_torch.models.experimental_attn import InterPoint
+
+    torch.manual_seed(0)
+    mod = InterPoint(width, verts).eval()
+    g = torch.Generator().manual_seed(1)
+    lf, rf = (torch.randn(3, verts, width, generator=g) for _ in range(2))
+    with torch.no_grad():
+        want = mod(lf, rf)
+        n = fused_attention.launches.value
+        got = mod.to(cuda)(lf.to(cuda), rf.to(cuda))
+    assert fused_attention.launches.value - n == 2
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_gan_prior_on_card_matches_cpu_and_refines(cuda, tmp_path):
+    """The shipped discriminator's energy and gradient on the card against
+    the CPU, then `synth_gen --prior gan` on the card: 128 B3 launches a
+    refined sample."""
+    from renderih_tpu_torch.optimize.geo import (
+        POSE_PRIOR_PATH,
+        load_pose_prior,
+        make_gan_pose_prior,
+    )
+
+    params = load_pose_prior(POSE_PRIOR_PATH)
+    pose = torch.from_numpy(np.random.default_rng(3).normal(0, 0.8, 45).astype(np.float32))
+    res = {}
+    for dev in ("cpu", cuda):
+        x = pose.to(dev).clone().requires_grad_(True)
+        e = make_gan_pose_prior(params, dev)(x)
+        e.backward()
+        res[str(dev)] = (e.detach().cpu(), x.grad.cpu())
+    for a, b in zip(res[str(cuda)], res["cpu"]):
+        assert (a - b).abs().max() <= 1e-5 * max(1.0, float(b.abs().max()))
+    n = sdf.launches.value
+    synth_gen.main(["--out", str(tmp_path), "--n", "1", "--batch", "1", "--optimize",
+                    "--opt_iters", "60", "--prior", "gan"])
+    assert sdf.launches.value - n == 128

@@ -39,7 +39,7 @@ def test_conv3x3_plain_matches_pallas_and_xla(shape):
     np.testing.assert_allclose(got, xla, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 96, 128])
 @pytest.mark.parametrize("n,m", [(61, 61), (63, 127)])
 def test_mha_plain_matches_pallas(n, m, d):
     """The plain version the card's kernel is held to, against the Pallas

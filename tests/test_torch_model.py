@@ -175,20 +175,17 @@ def test_batching_server_matches_predict(small):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("override", [{"paired_lr": True}, {"use_cheby": True}])
-def test_unported_variants_raise(small, override):
-    cfg = load_config(overrides={"model": override})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(cfg, small["assets"])
-
-
 @pytest.mark.parametrize("override", [
     {"decoder": "mano"}, {"with_aux_heads": True}, {"encoder": "hrnet_w32"},
-    {"encoder": "vit_base", "img_size": 256}, {"encoder": "vit_large", "img_size": 256}])
+    {"encoder": "vit_base", "img_size": 256}, {"encoder": "vit_large", "img_size": 256},
+    {"paired_lr": True}, {"use_cheby": True}])
 def test_ported_variants_build(small, override):
     """Each variant builds, the decoder and the aux heads at the encoder's
     widths. The full-width encoders build on the meta device (no weights
-    drawn); the others on real tensors, their weights drawn."""
+    drawn); the others on real tensors, their weights drawn. The paired
+    model is the unpaired trunk (left and right stages, the upstream keys);
+    the Chebyshev one holds each stage's Laplacians [left, right] from the
+    assets."""
     cfg = load_config(overrides={**SMALL, "model": {**SMALL["model"], **override}})
     with torch.device("meta" if "encoder" in override else "cpu"):
         model = build_model(cfg, small["assets"])
@@ -197,6 +194,16 @@ def test_ported_variants_build(small, override):
     global_dim = {"hrnet_w32": 2048, "vit_base": 768, "vit_large": 1024}.get(
         override.get("encoder"), 512)
     assert model.decoder.gf_layer_left[0].in_features == global_dim
+    for i, layer in enumerate(model.decoder.dual_gcn.layers):
+        assert hasattr(layer, "graph_left") and not hasattr(layer, "graph_pair")
+        if "use_cheby" in override:
+            laps = (small["assets"].left.laplacians_coarse[i],
+                    small["assets"].right.laplacians_coarse[i])
+            assert torch.equal(layer.laplacian, torch.stack(laps))
+        else:
+            assert layer.laplacian is None
+    if "paired_lr" in override:  # the unpaired upstream keys
+        assert set(model.state_dict()) == set(small["state_dict"])
 
 
 def test_config_matches_jax_config():

@@ -57,8 +57,28 @@ def test_2d_labels_are_the_sampled_camera_projection(generated):
     np.testing.assert_allclose(labels["j3d_left"][:, 9], 0.0, atol=1e-6)
 
 
-@pytest.mark.parametrize("flag", [["--prior", "gan"], ["--backgrounds", "bg_dir"],
-                                  ["--renderer", "pathtrace"]])
+def test_prior_gan_refines_with_the_shipped_discriminator(tmp_path, monkeypatch):
+    """`--prior gan`: the refinement's prior is the trained discriminator's
+    energy on the port's copy of the artifact (the JAX tool's default)."""
+    made = []
+    real = synth_gen.make_gan_pose_prior
+    monkeypatch.setattr(synth_gen, "make_gan_pose_prior",
+                        lambda params, device: made.append(params) or real(params, device))
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        result = synth_gen.main(["--out", str(tmp_path), "--n", "1", "--batch", "1",
+                                 "--optimize", "--opt_iters", "4", "--prior", "gan",
+                                 "--device", "cpu"])
+    finally:
+        torch.set_num_threads(prev)
+    assert len(made) == 1 and made[0]["gfc"]["kernel"].shape == (480, 128)
+    labels = dict(np.load(tmp_path / "train_labels.npz"))
+    assert all(np.isfinite(v).all() for v in labels.values())
+    assert result["refined_samples_per_s"] > 0
+
+
+@pytest.mark.parametrize("flag", [["--backgrounds", "bg_dir"], ["--renderer", "pathtrace"]])
 def test_unported_options_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         synth_gen.main(["--out", str(tmp_path), "--device", "cpu", *flag])
