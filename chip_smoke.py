@@ -249,12 +249,46 @@ line:
    CPU within 1e-5. Then `tools/train_pose_prior.py --steps 300` on the
    card: the LSGAN loss of the last 50 steps below half that of the first
    10, plausible poses scoring above randomized ones.
-21. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+21. Data parallelism (`parallel/`). `torchrun --standalone
+   --nproc_per_node 1 -m renderih_tpu_torch.apps.train --multihost
+   --synthetic --steps 9` on `Config()` at batch 64: world 1 through the
+   NCCL group, ZeRO-1 (`train.zero1`) and the BatchNorm's group dispatch,
+   B2 forward and dx; this phase's training runs all take a new process's
+   TF32 settings (cuDNN on, cuBLAS off), as the torchrun child does. The
+   child process prints its launches over its steps: exactly 26
+   B2 a step, all on `wgmma`, no B1. Its final checkpoint against the same
+   run of the plain trainer (no `--multihost`): every tensor (model,
+   optimizer, EMA) within 1e-5 of its largest value, the gap and the share
+   of tensors equal bit for bit printed (with TF32 off in cuDNN two runs of
+   the plain trainer part; with the defaults both are bit for bit), the
+   step counters and optimizer group equal; step 1's terms of both
+   printed. Its epoch_2 checkpoint (step 8) resumed by the plain trainer
+   for step 9 against its own step 9 (terms within 1e-4, the state within
+   `RESUME_TOL` as phase 8 holds a resume). Prints training images/s of
+   both runs (medians of steps 4-9; steps 5 and 9 carry the epoch
+   checkpoints' saves); with `--profile`, one step with no group and one
+   in a one-rank group, in this process. Then B2
+   and B1 held against their plain versions at batch 64, 32 and 128;
+   `eval_interhand --synthetic --bs 64 --mesh_data 1` against no mesh and
+   `InferenceEngine(mesh=make_mesh(1))` against `mesh=None` (160 images,
+   buckets 128 and 32): equal bit for bit, launches 13 B2 and 24 B1 a
+   forward. Then two ranks on the one card, both on `cuda:0` over gloo
+   (which carries the port's all_reduce and broadcast on CUDA tensors):
+   one SGD step of `Config()` in f32 (TF32 off, dropout 0, the encoder's
+   BatchNorm biases +3, batch 4 a rank) against world 1 at batch 8, at
+   the CPU tests' limits (tests/test_torch_parallel.py): the terms within
+   1e-4, the BatchNorm statistics within 1e-5, every gradient within
+   1.5e-3 of its tensor's scale and 80% within 1e-4; the two ranks equal.
+22. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
    batch 256 in the flagship's dtypes, B2 per training step at batch 64
    and per recipe training step at batch 128, B3 per refined sample; B1
    per ViT-B forward in its dtypes, B2 per HRNet-W32 forward and training
    step; B1 in f32 over one forward of each of `InterPoint`'s three
-   widths at batch 256, two launches each), and as the last line
+   widths at batch 256, two launches each; B2 per step of the torchrun
+   world-1 run at batch 64: its launches are the child's count over its
+   steps, which `apps.train` sets to 0 before the first, and its times
+   are phase 7's bf16 rows, the same shapes at the same batch, as the
+   `train` row's are), and as the last line
    `{"ok": true, "device": {...}}`.
 
 All f32 comparisons run with TF32 off in cuDNN and cuBLAS
@@ -265,6 +299,7 @@ All f32 comparisons run with TF32 off in cuDNN and cuBLAS
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -313,6 +348,8 @@ HRNET_TRAIN_STEPS = 6
 VARIANT_TRAIN_STEPS = 6  # phase 18: the variants' training at batch 64
 LIB_BATCH = 8  # phase 19: PointAttn's (B, V, V, F) tensors are 3.9 GB at 256 and V = 244
 PRIOR_STEPS = 300  # phase 20: train_pose_prior on the card
+DDP_STEPS = 9  # phase 21: torchrun world 1 against the plain trainer, batch 64
+WORLD2_BATCH = 4  # phase 21: a rank's batch of the two ranks on one card (global 8)
 
 
 def _gpu_line() -> str:
@@ -2671,6 +2708,372 @@ def gan_phase(assets, gpu_line: str) -> dict:
                 train=dict(run, losses=losses.tolist()))
 
 
+def _checkpoint_gap(path_a: str, path_b: str) -> tuple:
+    """Checkpoint b against a, tensor by tensor (the model, every optimizer
+    state, the EMA): the largest max|Δ| over the tensor's largest |a|, the
+    share of tensors equal bit for bit, and whether the step counters and
+    the optimizer's param group agree."""
+    import torch
+
+    load = lambda p: torch.load(f"{p}/state.pt", weights_only=True, map_location="cpu")
+    a, b = load(path_a), load(path_b)
+
+    def tensors(blob):
+        out = {f"model/{k}": v for k, v in blob["model"].items()}
+        for i, st in blob["optimizer"]["state"].items():
+            out.update({f"optimizer/{i}/{k}": v for k, v in st.items() if torch.is_tensor(v)})
+        out.update({f"ema/{k}": v for k, v in (blob["ema"] or {}).items()})
+        return out
+
+    ta, tb = tensors(a), tensors(b)
+    if ta.keys() != tb.keys():
+        raise AssertionError(f"checkpoints {path_a} and {path_b} hold other tensors: "
+                             f"{sorted(ta.keys() ^ tb.keys())[:4]}")
+    worst, equal = 0.0, 0
+    for k, va in ta.items():
+        va, vb = va.double(), tb[k].double()
+        err, scale = float((va - vb).abs().max()), float(va.abs().max())
+        worst = max(worst, err / scale if scale > 0 else (0.0 if err == 0 else float("inf")))
+        equal += bool(torch.equal(va, vb))
+    groups = lambda blob: [{k: v for k, v in g.items()} for g in blob["optimizer"]["param_groups"]]
+    same = ((a["step"], a["steps_taken"]) == (b["step"], b["steps_taken"])
+            and groups(a) == groups(b))
+    return worst, equal / len(ta), same
+
+
+def _world_step(cfg, assets, batch: dict, rows, device: str, branches) -> dict:
+    """One SGD step of `cfg` from `init_model`'s seed-0 weights with the
+    encoder's BatchNorm biases raised by `BN_BIAS_SHIFT` (phase 9), on the
+    global rows `rows` of `batch` (all of it without a group), inside
+    `branches` (`utils/branches.py`): the terms, gradients and BatchNorm
+    statistics, on the CPU, and what `branches` yielded."""
+    import torch
+
+    from renderih_tpu_torch.models import init_model
+    from renderih_tpu_torch.models.layers import BatchNorm2d
+    from renderih_tpu_torch.train.state import create_train_state
+    from renderih_tpu_torch.train.trainer import make_train_step
+
+    model = init_model(cfg, assets, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for mod in model.encoder.modules():
+            if isinstance(mod, BatchNorm2d):
+                mod.bias += BN_BIAS_SHIFT
+    model = model.to(device, memory_format=torch.channels_last)
+    state = create_train_state(cfg, model, 10)
+    local = {k: (v if rows is None else v[torch.as_tensor(rows)]).to(device)
+             for k, v in batch.items()}
+    with branches as taken:
+        terms = make_train_step(cfg, assets, 10, device)(state, local)
+    return dict(terms={k: float(v) for k, v in terms.items()},
+                grads={k: p.grad.cpu() for k, p in model.named_parameters()
+                       if p.grad is not None},
+                bn={k: v.cpu() for k, v in model.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))}), taken
+
+
+def _rank_branches(taken: list, rows, global_batch: int) -> list:
+    """A branch record of the global batch cut to the global rows `rows`
+    (every recorded tensor leads with the batch, possibly folded with the
+    next axis)."""
+    import torch
+
+    rows = torch.as_tensor(rows)
+    return [(kind, b.reshape(global_batch, -1, *b.shape[1:])[rows].flatten(0, 1))
+            for kind, b in taken]
+
+
+def _world2_rank(rank: int, workdir: str, cfg, batch: dict, device: str) -> None:
+    """Rank `rank` of two on `device` (the card: `cuda:0` for both), a gloo
+    group through a `file://` store: `_world_step` on its rows, written to
+    `rank{rank}.pt`."""
+    import torch
+    import torch.distributed
+
+    from renderih_tpu_torch.assets import make_synthetic_assets
+    from renderih_tpu_torch.parallel import dist
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    device = dist.init(device, backend="gloo", init_method=f"file://{workdir}/store",
+                       rank=rank, world_size=2)
+    from renderih_tpu_torch.utils.branches import take_branches
+
+    rows = dist.rank_rows(len(batch["img"]), 2, rank)
+    taken = torch.load(f"{workdir}/branches{rank}.pt", weights_only=True)
+    out, _ = _world_step(cfg, make_synthetic_assets(0), batch, rows, str(device),
+                         take_branches(taken))
+    torch.save(out, f"{workdir}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def world2_phase(cfg, assets) -> dict:
+    """Two ranks on the one card over gloo against world 1 at the same
+    global batch (see the module docstring, phase 21)."""
+    import copy
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from renderih_tpu_torch.data.synthetic import synthetic_batch
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.parallel import dist
+    from renderih_tpu_torch.utils.branches import gradient_gaps, record_branches
+
+    wcfg = copy.deepcopy(cfg)
+    wcfg.train.optimizer, wcfg.train.precision, wcfg.train.lr = "sgd", "f32", 1e3
+    wcfg.train.warmup_epochs, wcfg.model.dropout = 0, 0.0
+    with torch.no_grad():
+        batch = synthetic_batch(assets, torch.Generator().manual_seed(2), 2 * WORLD2_BATCH,
+                                cfg.model.img_size)
+    # world 1 first: its ReLU, max-pool and hard-swish branches are the
+    # ranks' (a kink within rounding would otherwise go either way)
+    one, taken = _world_step(wcfg, assets, batch, None, DEVICE, record_branches())
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        for r in range(2):
+            torch.save(_rank_branches([(k, b.cpu()) for k, b in taken],
+                                      dist.rank_rows(2 * WORLD2_BATCH, 2, r), 2 * WORLD2_BATCH),
+                       f"{root}/branches{r}.pt")
+        del taken
+        device = "cuda:0" if DEVICE == "cuda" else DEVICE
+        procs = [ctx.Process(target=_world2_rank, args=(r, root, wcfg, batch, device))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        if codes != [0, 0]:
+            raise AssertionError(f"the two ranks on the card exited {codes}")
+        ranks = [torch.load(f"{root}/rank{r}.pt", weights_only=True) for r in range(2)]
+    terms = max(abs(ranks[0]["terms"][k] - v) / max(abs(v), 1e-12)
+                for k, v in one["terms"].items())
+    bn = max(float((ranks[0]["bn"][k] - v).abs().max() / v.abs().max())
+             for k, v in one["bn"].items())
+    gaps = gradient_gaps(ranks[0]["grads"], one["grads"])
+    tight = sum(g <= 1e-4 for g in gaps.values()) / len(gaps)
+    worst = max(gaps, key=gaps.get)
+    ranks_equal = all(torch.equal(ranks[0]["grads"][k], ranks[1]["grads"][k])
+                      for k in gaps) and all(torch.equal(ranks[0]["bn"][k], ranks[1]["bn"][k])
+                                             for k in one["bn"])
+    print(f"[world2] two ranks on one card over gloo (all_reduce, broadcast on CUDA tensors), "
+          f"{cfg.model.encoder} f32, TF32 off, dropout 0, one SGD step at {WORLD2_BATCH} a rank "
+          f"(global {2 * WORLD2_BATCH}), the encoder's BatchNorm biases +{BN_BIAS_SHIFT:g}, "
+          f"the ranks on world 1's branches, against world 1 at batch {2 * WORLD2_BATCH}: terms rel max|Δ| {terms:.2e} (limit "
+          f"1e-4), BatchNorm statistics {bn:.2e} (limit 1e-5), gradients worst {gaps[worst]:.2e} "
+          f"({worst}; limit 1.5e-3), {100 * tight:.1f}% of {len(gaps)} tensors within 1e-4 "
+          f"(limit 80%); the ranks' gradients and statistics "
+          f"{'equal' if ranks_equal else 'DIFFER'}", flush=True)
+    if not (terms <= 1e-4 and bn <= 1e-5 and gaps[worst] <= 1.5e-3 and tight >= 0.8
+            and ranks_equal):
+        raise AssertionError("world 2 on the card left world 1")
+    return dict(terms_rel=terms, bn_rel=bn, grad_worst=gaps[worst], grad_share_1e4=tight)
+
+
+@contextlib.contextmanager
+def _tf32_defaults():
+    """TF32 as a new process has it (cuDNN on, cuBLAS off), restored after:
+    what a torchrun child runs with, beside the f32 checks' TF32 off."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def ddp_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
+    """Data-parallel training, eval and serving at world 1 on the card (see
+    the module docstring, phase 21)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import eval_interhand
+    from renderih_tpu_torch.apps import train as train_app
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.parallel.mesh import make_mesh
+    from renderih_tpu_torch.serve import InferenceEngine
+
+    per_fwd = dict(per_forward(cfg, assets), sdf_grid=0)
+    per_step = 2 * per_fwd["conv3x3"]
+    spe = TRAIN_SYNTH_N // cfg.train.batch_size
+    common = ["--synthetic", "--synth_n", str(TRAIN_SYNTH_N), "--steps", str(DDP_STEPS),
+              "--device", DEVICE]
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root, _tf32_defaults():
+        yaml = lambda name: _train_yaml(cfg, root, name, log_every=1, eval_every=1000,
+                                        save_gap=1, seed=0)
+        for counter in _counters():
+            counter.reset()
+        plain = train_app.main(["--cfg", yaml("plain"), *common])
+        _check_run_launches("plain training", _launches(),
+                            {"conv3x3": per_step * DDP_STEPS, "fused_mha": 0, "sdf_grid": 0})
+
+        # torchrun, one rank: NCCL, ZeRO-1, the BatchNorm's group path at world 1
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "renderih_tpu_torch.apps.train", "--multihost",
+               "--cfg", yaml("ddp"), *common]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        ddp = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+        launches = ddp["kernel_launches"]
+        want = {"conv3x3": per_step * DDP_STEPS, "conv3x3_simt": 0,
+                "conv3x3_wgmma": per_step * DDP_STEPS, "fused_mha": 0, "sdf_grid": 0}
+        if ddp["world"] != 1 or ddp["final_step"] != DDP_STEPS or launches != want:
+            raise AssertionError(f"torchrun apps.train --multihost: {ddp}; expected world 1, "
+                                 f"{DDP_STEPS} updates, launches {want}")
+        gap, equal, same = _checkpoint_gap(f"{root}/plain/final", f"{root}/ddp/final")
+        print(f"[ddp] torchrun --standalone --nproc_per_node 1 -m renderih_tpu_torch.apps.train "
+              f"--multihost --synthetic --steps {DDP_STEPS}, Config() at batch "
+              f"{cfg.train.batch_size} (NCCL, ZeRO-1, {wall:.1f} s with the launcher): launches "
+              f"{launches} ({per_step} B2 a step, all wgmma); its final checkpoint against the "
+              f"plain trainer's: worst tensor max|Δ| {gap:.3e} of its largest value (limit "
+              f"1e-5), {100 * equal:.1f}% of the tensors equal bit for bit, step counters and "
+              f"optimizer group {'equal' if same else 'DIFFER'}", flush=True)
+        if gap > 1e-5 or not same:
+            raise AssertionError("the DDP world-1 run left the plain trainer")
+
+        # the DDP run's last epoch checkpoint, resumed by the plain trainer
+        # for the last step: against the DDP run's own last step, as phase 8
+        cut = (DDP_STEPS - 1) // spe
+        step0 = cut * spe
+        shutil.copytree(f"{root}/ddp/_synth_data", f"{root}/resumed/_synth_data")
+        shutil.copytree(f"{root}/ddp/epoch_{cut}", f"{root}/resumed/epoch_{cut}")
+        resumed = train_app.main(["--cfg", yaml("resumed"), *common, "--resume", "auto"])
+        if resumed["logged"][0][0] != step0 + 1 or resumed["final_step"] != DDP_STEPS:
+            raise AssertionError(f"the resumed run did not continue at step {step0 + 1}")
+        with open(f"{root}/ddp/metrics.jsonl") as f:
+            ddp_terms = {r["step"]: {k[len("train/"):]: v for k, v in r.items()
+                                     if k.startswith("train/")}
+                         for r in map(json.loads, f) if "train/total" in r}
+        ref = ddp_terms[step0 + 1]
+        terms = max(abs(resumed["logged"][0][1][k] - v) / max(abs(v), 1e-12)
+                    for k, v in ref.items())
+        state = _state_gap(f"{root}/ddp/final", resumed["checkpoint"], f"{root}/ddp/epoch_{cut}")
+        first = max(abs(ddp_terms[1][k] - v) / max(abs(v), 1e-12)
+                    for k, v in plain["logged"][0][1].items())
+        print(f"[ddp] step 1's terms, torchrun against plain: rel max|Δ| {first:.3e}; the "
+              f"torchrun run's epoch_{cut} checkpoint (step {step0}) resumed by the plain trainer "
+              f"to step {DDP_STEPS}, against the torchrun run's step {DDP_STEPS}: terms rel max|Δ| "
+              f"{terms:.3e} (limit 1e-4); final state: parameters {state['params']:.3e} of the "
+              f"step's largest move, moments {state['moments']:.3e}, statistics "
+              f"{state['bn']:.3e} (limit {RESUME_TOL:g}), steps "
+              f"{'equal' if state['steps_equal'] else 'differ'}", flush=True)
+        if not (terms <= 1e-4 and state["steps_equal"] and state["params"] <= RESUME_TOL
+                and state["moments"] <= RESUME_TOL and state["bn"] <= RESUME_TOL):
+            raise AssertionError("the DDP checkpoint does not resume under the plain trainer")
+    print(f"[ddp] training images/s at batch {cfg.train.batch_size}: torchrun world 1 "
+          f"{ddp['images_per_s']:.1f}, plain trainer {plain['images_per_s']:.1f} (medians of "
+          f"steps {train_app.WARMUP_STEPS + 1}-{DDP_STEPS}) on {gpu_line}", flush=True)
+
+    # eval and serving on a mesh of the one card, bit for bit against none
+    held = {b: hold_path_kernels(cfg, assets, b, seed=40 + i)
+            for i, b in enumerate((EVAL_CLI_BATCH, 32, 128))}
+    print("[ddp] the eval and serving kernels against their plain versions, max|Δ| B2 "
+          "bfloat16 / B1 float32: " + ", ".join(
+              f"batch {b} {h['conv3x3']:.3e} / {h['fused_mha']:.3e}" for b, h in held.items()),
+          flush=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        cli = ["--cfg", _train_yaml(cfg, root, "eval"), "--synthetic", "--bs",
+               str(EVAL_CLI_BATCH), "--json", "--device", DEVICE]
+        one = eval_interhand.main(cli)
+        for counter in _counters():
+            counter.reset()
+        meshed = eval_interhand.main([*cli, "--mesh_data", "1"])
+        eval_launches = _launches()
+    n_fwd = -(-eval_interhand.SYNTHETIC_N // EVAL_CLI_BATCH)
+    _check_run_launches("eval_interhand --mesh_data 1", eval_launches,
+                        {k: n * n_fwd for k, n in per_fwd.items()},
+                        must_launch=("conv3x3", "fused_mha"))
+    timing = ("images_per_sec", "cache_upload_s")
+    differ = [k for k in one if k not in timing and not np.array_equal(one[k], meshed[k])]
+    print(f"[ddp] eval_interhand --synthetic --bs {EVAL_CLI_BATCH} --mesh_data 1 against no "
+          f"mesh: {len(one) - len(timing) - len(differ)} summary values equal bit for bit, "
+          f"{len(differ)} differ {differ[:3]}; {meshed['images_per_sec']:.1f} against "
+          f"{one['images_per_sec']:.1f} images/s", flush=True)
+    if differ:
+        raise AssertionError("the mesh eval at 1 device left the one-device eval")
+    images = np.random.default_rng(7).integers(0, 256, (160, cfg.model.img_size,
+                                                        cfg.model.img_size, 3), dtype=np.uint8)
+    engines = [InferenceEngine(cfg, assets=assets, device=DEVICE, seed=0),
+               InferenceEngine(cfg, assets=assets, seed=0, mesh=make_mesh(1) if DEVICE == "cuda"
+                               else make_mesh(1, devices=[DEVICE]))]
+    ref = engines[0].predict(images)
+    for counter in _counters():
+        counter.reset()
+    got = engines[1].predict(images)  # buckets 128 and 32
+    _check_run_launches("InferenceEngine(mesh=make_mesh(1))", _launches(),
+                        {k: 2 * n for k, n in per_fwd.items()}, must_launch=("conv3x3", "fused_mha"))
+    differ = [k for k in ref if not np.array_equal(ref[k], got[k])]
+    print(f"[ddp] InferenceEngine(mesh=make_mesh(1)) against mesh=None, 160 images (buckets 128 "
+          f"and 32): {len(ref) - len(differ)} outputs equal bit for bit, {len(differ)} differ "
+          f"{differ}", flush=True)
+    if differ:
+        raise AssertionError("the mesh engine at 1 device left the one-device engine")
+    del engines
+    torch.cuda.empty_cache()
+    result = dict(launches=launches, images_per_s=ddp["images_per_s"],
+                  plain_images_per_s=plain["images_per_s"], checkpoint_gap=gap,
+                  checkpoint_equal_share=equal, resume_terms_rel=terms, resume_state=state,
+                  eval_mesh_images_per_s=meshed["images_per_sec"], held=held)
+    if profile:
+        result["profile"] = _group_step_profiles(cfg, assets)
+    return result
+
+
+def _group_step_profiles(cfg, assets) -> dict:
+    """One training step of `cfg` at its batch (seed-0 weights, one
+    synthetic batch) under the profiler, first with no process group, then
+    in a one-rank group on the card (ZeRO-1, the gradient and term
+    all-reduces), the group left after."""
+    import tempfile
+
+    import torch
+    import torch.distributed
+
+    from renderih_tpu_torch.data.synthetic import synthetic_batch
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.models import init_model
+    from renderih_tpu_torch.parallel import dist
+    from renderih_tpu_torch.train.state import create_train_state
+    from renderih_tpu_torch.train.trainer import make_train_step
+
+    with torch.no_grad():
+        batch = {k: v.to(DEVICE) for k, v in synthetic_batch(
+            assets, torch.Generator().manual_seed(3), cfg.train.batch_size,
+            cfg.model.img_size).items()}
+
+    def one(label):
+        model = init_model(cfg, assets, torch.Generator().manual_seed(0))
+        state = create_train_state(cfg, model.to(DEVICE, memory_format=torch.channels_last),
+                                   1000)
+        step = make_train_step(cfg, assets, 1000, DEVICE)
+        return profile_phase(label, lambda: float(step(state, batch)["total"]), top=12)
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root, _tf32_defaults():
+        out = {"no_group": one(f"one training step at batch {cfg.train.batch_size}, no group")}
+        dist.init(DEVICE, init_method=f"file://{root}/store", rank=0, world_size=1)
+        try:
+            out["world1"] = one(f"the same in a one-rank {torch.distributed.get_backend()} "
+                                "group (ZeRO-1, all-reduces)")
+        finally:
+            torch.distributed.destroy_process_group()
+    return out
+
+
 def _summary(rows: list, launches: int) -> dict:
     """One kernel's totals over the launches of one unit of its path (a
     flagship forward at batch 256; a refined sample; one forward of each
@@ -2784,6 +3187,8 @@ def run(json_path: str | None, profile: bool) -> int:
     variants = variant_path_phase(assets, gpu_line, cfg, profile)
     lib_rows, library = library_phase(assets, gpu_line)
     gan = gan_phase(assets, gpu_line)
+    ddp = ddp_phase(cfg, assets, gpu_line, profile)
+    world2 = world2_phase(cfg, assets)
     per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
     b3_ms = synth["per_sample"] * on_path[0]["ms"]
     print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
@@ -2825,6 +3230,10 @@ def run(json_path: str | None, profile: bool) -> int:
              replaces="renderih_tpu/kernels/fused_attention.py:43",
              **_summary([r for r in lib_rows if r["dtype"] == "float32"],
                         library["unit_launches"]["fused_mha"])),
+        dict(name="conv3x3_same", path="ddp_train", route="cuda",
+             source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
+             **_train_summary([r for r in bwd_rows if r["dtype"] == "bfloat16"],
+                              ddp["launches"]["conv3x3"])),
         dict(name="sdf_grid", path="synth", route="cuda", source=f"{src}/csrc/sdf.cu",
              replaces="renderih_tpu/kernels/sdf_pallas.py:124",
              **dict(_summary(on_path, synth["launches"]["sdf_grid"]),
@@ -2843,7 +3252,8 @@ def run(json_path: str | None, profile: bool) -> int:
                        "vit_rows": vit_rows, "vit_path": vit, "hrnet_rows": hrnet_rows,
                        "hrnet_conv_backward": hrnet_bwd, "hrnet_path": hrnet,
                        "variants": variants, "interpoint_rows": lib_rows,
-                       "library": library, "gan": gan, "kernels": kernels}, f, indent=1,
+                       "library": library, "gan": gan, "ddp": ddp, "world2": world2,
+                       "kernels": kernels}, f, indent=1,
                       default=float)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
@@ -2860,8 +3270,9 @@ def main() -> int:
                         help="also print device time by kernel over one flagship "
                              "predict at the largest bucket, one refined sample, "
                              "one training step, one eval batch, one recipe step "
-                             "with and without the aux heads and one predict of each "
-                             "decoder variant (torch.profiler)")
+                             "with and without the aux heads, one predict of each "
+                             "decoder variant and one training step with no process "
+                             "group and in a one-rank group (torch.profiler)")
     args = parser.parse_args()
     try:
         return run(args.json, args.profile)

@@ -4,12 +4,13 @@
     python -m renderih_tpu_torch.apps.eval_interhand [--cfg C] \
         [--ckpt DIR [--ema] | --torch_ckpt PTH] [--data /path/packed] \
         [--split test] [--iou iou.npy] [--bs 512] [--synthetic] [--json] \
-        [--newmpjpe] [--device cuda|cpu]
+        [--newmpjpe] [--device cuda|cpu] [--mesh_data N]
 
 Runs on the card (`--device cuda`, the default; raises without one) or,
 when asked, on the CPU with the kernels' plain versions. `--synthetic`
 (or no `--data`) evaluates 256 synthetic samples written to a temporary
-directory. Data-parallel eval (`--mesh_data`) is not ported yet.
+directory. `--mesh_data N` evaluates data-parallel over the first N cards
+(with `--device cpu`, N replicas on the CPU): `evaluate_packed(mesh=)`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from renderih_tpu_torch.config import load_config
 from renderih_tpu_torch.data.interhand import PackedInterHand, make_synthetic_packed
 from renderih_tpu_torch.eval.evaluator import evaluate_packed, print_summary
 from renderih_tpu_torch.models import init_model
+from renderih_tpu_torch.parallel.mesh import make_mesh
 from renderih_tpu_torch.serve import resolve_device
 
 SYNTHETIC_N = 256
@@ -75,9 +77,18 @@ def main(argv=None) -> dict:
     p.add_argument("--newmpjpe", action="store_true",
                    help="root joint 9, length |j9 - j0| "
                         "(reference apps/eval_interhand_newmpjpe.py)")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="evaluate data-parallel over N devices (0: one device)")
     args = p.parse_args(argv)
     iou = np.load(args.iou, allow_pickle=False) if args.iou else None
-    summary = run_eval(args, SYNTHETIC_N, iou=iou,
+    mesh = None
+    if args.mesh_data:
+        device = resolve_device(args.device)
+        mesh = make_mesh(data=args.mesh_data, devices=(
+            [device] * args.mesh_data if device.type == "cpu"
+            else [torch.device("cuda", i) for i in range(torch.cuda.device_count())
+                  ][:args.mesh_data]))
+    summary = run_eval(args, SYNTHETIC_N, iou=iou, mesh=mesh,
                        convention="newmpjpe" if args.newmpjpe else "default")
     if args.json:
         print(json.dumps({k: float(v) for k, v in summary.items()}), flush=True)

@@ -1,9 +1,12 @@
 """Training CLI (counterpart of `renderih_tpu/apps/train.py`; reference
-`apps/train.py` + `core/lijun_trainer.py:train_gcn`), on one device.
+`apps/train.py` + `core/lijun_trainer.py:train_gcn`), on one device or
+data-parallel over several.
 
     python -m renderih_tpu_torch.apps.train [--cfg configs/flagship.yaml] \
         [--data /path/to/packed | --synthetic] [--epochs N] [--steps N] \
         [--resume auto|PATH] [--device cuda|cpu]
+    torchrun --standalone --nproc_per_node 8 -m renderih_tpu_torch.apps.train \
+        --multihost [the same arguments]
 
 Runs on the card (`--device cuda`, the default; raises without one) or,
 when asked, on the CPU with the kernels' plain versions. A packed split
@@ -24,6 +27,28 @@ under `vis/`. Eval changes nothing of training and its time stays out of
 the training images/s. The from-scratch recipes (`configs/convergence_r5*.yaml`,
 `configs/probe_aux.yaml`: the aux heads) and `decoder: mano` configs run
 as they are; their `aux_*` and `mano_*` loss terms are logged with the others.
+
+`--multihost` joins the process group from torchrun's environment
+(`parallel/dist.py`; JAX's `jax.distributed.initialize()`): one process a
+card, `cuda:LOCAL_RANK` (with `--device cpu`, gloo on the CPU). The run is
+JAX's data mesh over the W ranks (`train.mesh_data` must be -1 or W): the
+global batch is `train.batch_size × W`, steps per epoch and images/s come
+from it; every rank draws the same global batch and keeps its rows
+(`dist.rank_rows`); the step averages gradients and loss terms over the
+ranks, with global BatchNorm statistics, and shards the optimizer under
+`train.zero1`. The device data cache is used at world 1 only, as in JAX.
+Only rank 0 writes metrics, images and checkpoints (in the one-device
+format: a checkpoint resumes at any world size). SIGTERM on any rank
+saves `preempt` on all (the flag is all-reduced every step). The
+in-training eval runs on rank 0 at the global batch, as JAX's unsharded
+eval does, while the others wait. A step failure on any rank ends every
+rank with a non-zero exit: at world > 1 a step is neither retried nor
+followed by a crash checkpoint, since the other ranks are inside the
+step's collectives, which a retry on one rank would not meet, and a
+checkpoint is itself a collective; the failed rank ends and the others'
+next collective fails with it. The last line printed (rank 0) is a JSON
+object with the updates applied, images/s and the kernels' launches over
+the steps of this run (the counters are set to 0 before the first).
 """
 
 from __future__ import annotations
@@ -45,9 +70,11 @@ from renderih_tpu_torch.config import load_config
 from renderih_tpu_torch.data.interhand import PackedInterHand, make_synthetic_packed
 from renderih_tpu_torch.data.pipeline import DataProvider
 from renderih_tpu_torch.eval.evaluator import eval_mode, evaluate_packed
+from renderih_tpu_torch.kernels import conv3x3, fused_attention, sdf
 from renderih_tpu_torch.losses.graph_loss import fit_orthographic_cam
 from renderih_tpu_torch.models import init_model, model_call_kwargs
 from renderih_tpu_torch.ops.image import normalize_imagenet
+from renderih_tpu_torch.parallel import dist
 from renderih_tpu_torch.render.renderer import TwoHandRenderer
 from renderih_tpu_torch.serve import resolve_device
 from renderih_tpu_torch.train.resilience import run_step_guarded
@@ -88,7 +115,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint dir, or 'auto': the newest in train.checkpoint_dir")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group from torchrun's environment "
+                        "(data-parallel over its ranks)")
     return p
+
+
+class _NoWriter:
+    """The metrics writer of a rank other than 0: writes nothing."""
+
+    def write(self, *args, **kwargs) -> None:
+        pass
+
+
+def _kernel_counters() -> dict:
+    return {"conv3x3": conv3x3.launches,
+            **{f"conv3x3_{k}": c for k, c in conv3x3.routes.items()},
+            "fused_mha": fused_attention.launches, "sdf_grid": sdf.launches}
 
 
 @contextlib.contextmanager
@@ -177,14 +220,23 @@ def _datasets(args, cfg, assets, device):
         if not 0 <= args.synth_seed < HELD_OUT_SEED:
             raise ValueError(f"--synth_seed must be in [0, {HELD_OUT_SEED})")
         root = os.path.join(cfg.train.checkpoint_dir, "_synth_data")
-        train = make_synthetic_packed(root, "train", assets, n=args.synth_n,
-                                      seed=args.synth_seed,
-                                      render_images=args.synth_render, device=device)
-        held_out = make_synthetic_packed(root, "test", assets,
-                                         n=args.synth_eval_n or max(args.synth_n // 4, 16),
-                                         seed=HELD_OUT_SEED + args.synth_seed,
-                                         render_images=args.synth_render, device=device)
-        return train, held_out
+
+        def make():
+            train = make_synthetic_packed(root, "train", assets, n=args.synth_n,
+                                          seed=args.synth_seed,
+                                          render_images=args.synth_render, device=device)
+            held_out = make_synthetic_packed(root, "test", assets,
+                                             n=args.synth_eval_n or max(args.synth_n // 4, 16),
+                                             seed=HELD_OUT_SEED + args.synth_seed,
+                                             render_images=args.synth_render, device=device)
+            return train, held_out
+
+        if dist.rank() == 0:
+            splits = make()
+        dist.barrier()  # rank 0 has written the splits; the others read them
+        if dist.rank() != 0:
+            splits = make()
+        return splits
     train = PackedInterHand.load(args.data, "train")
     has_test = os.path.exists(os.path.join(args.data, "test_labels.npz"))
     return train, PackedInterHand.load(args.data, "test") if has_test else None
@@ -201,14 +253,25 @@ def main(argv=None) -> dict:
         cfg.train.epochs = args.epochs
     seed = cfg.train.seed
     device = resolve_device(args.device)
+    if args.multihost:
+        device = dist.init(device)
+    world, rank = dist.world(), dist.rank()
+    if rank:
+        log.setLevel(logging.WARNING)
+    if cfg.train.mesh_data not in (-1, world) or cfg.train.mesh_model != 1:
+        raise ValueError(f"train.mesh_data {cfg.train.mesh_data} x mesh_model "
+                         f"{cfg.train.mesh_model}: the data axis is the {world} ranks "
+                         "(mesh_data -1 or the world size, mesh_model 1)")
 
     assets = load_assets(cfg.assets)
     dataset, eval_dataset = _datasets(args, cfg, assets, device)
-    batch_size = cfg.train.batch_size
-    provider = DataProvider(dataset, batch_size=batch_size, seed=seed)
+    global_batch = cfg.train.batch_size * world
+    rows = dist.rank_rows(global_batch, world, rank, max(1, int(cfg.train.grad_accum)))
+    provider = DataProvider(dataset, batch_size=global_batch, seed=seed)
     steps_per_epoch = max(provider.batch_per_epoch, 1)
     total_steps = args.steps or cfg.train.epochs * steps_per_epoch
-    log.info("dataset: %d samples, %d steps an epoch", len(dataset), steps_per_epoch)
+    log.info("dataset: %d samples, %d steps an epoch; %d rank(s), global batch %d",
+             len(dataset), steps_per_epoch, world, global_batch)
 
     model = init_model(cfg, assets, torch.Generator().manual_seed(seed))
     model = model.to(device, memory_format=torch.channels_last)
@@ -230,7 +293,7 @@ def main(argv=None) -> dict:
 
     # Device-resident data cache: upload the split once, gather on the device.
     cache = None
-    if 0 < dataset.nbytes <= cfg.train.data_device_cache_mb * 1e6:
+    if world == 1 and 0 < dataset.nbytes <= cfg.train.data_device_cache_mb * 1e6:
         t_up = time.perf_counter()
         cache = {k: torch.from_numpy(v).to(device)
                  for k, v in dataset.batch(np.arange(len(dataset))).items()}
@@ -244,11 +307,16 @@ def main(argv=None) -> dict:
     ckpt_dir = cfg.train.checkpoint_dir
     step_seconds, logged, evals = [], [], []
     overlays: dict = {}  # this run's last eval overlays
+    # a failure on one rank of several ends the run (see the module docstring)
+    guard = {} if world == 1 else dict(retries=0, crash_checkpoint=False)
+    for counter in _kernel_counters().values():
+        counter.reset()
     try:
-        with MetricsWriter(ckpt_dir) as writer:
+        with MetricsWriter(ckpt_dir) if rank == 0 else contextlib.nullcontext(
+                _NoWriter()) as writer:
             t_prev = time.perf_counter()
             for i in range(step0, total_steps):
-                idx = provider.sampler.next_indices()
+                idx = provider.sampler.next_indices()[rows]
                 if cache is not None:
                     dev_idx = torch.from_numpy(idx).to(device)
                     raw = {k: v.index_select(0, dev_idx) for k, v in cache.items()}
@@ -264,13 +332,13 @@ def main(argv=None) -> dict:
                     # the host reads the terms inside the guard, in one copy
                     return dict(zip(terms, torch.stack(list(terms.values())).tolist()))
 
-                terms = run_step_guarded(thunk, state, ckpt_dir)
+                terms = run_step_guarded(thunk, state, ckpt_dir, **guard)
                 now = time.perf_counter()
                 step_seconds.append(now - t_prev)
                 t_prev = now
                 if terms is not None:
                     steady = step_seconds[WARMUP_STEPS:] or step_seconds
-                    ips = batch_size / statistics.median(steady)
+                    ips = global_batch / statistics.median(steady)
                     heads = "".join(f" {k} {v:.4f}" for k, v in terms.items()
                                     if k.startswith(("aux_", "mano_")))
                     log.info("step %d/%d epoch %d loss %.4f (v3d %.4f v2d %.4f joint %.4f%s) "
@@ -280,12 +348,12 @@ def main(argv=None) -> dict:
                     writer.write(i + 1, terms, prefix="train/")
                     writer.write(i + 1, {"images_per_sec": ips})
                     logged.append((i + 1, terms))
-                if preempted:
+                if dist.any_rank(bool(preempted), device):
                     path = os.path.abspath(os.path.join(ckpt_dir, "preempt"))
                     save_checkpoint(path, state)
                     log.info("SIGTERM: saved preemption checkpoint %s at step %d",
                              path, state.step)
-                    return _result(state, path, step_seconds, batch_size, logged, evals)
+                    return _result(state, path, step_seconds, global_batch, logged, evals)
                 epoch = (i + 1) // steps_per_epoch
                 if (i + 1) % steps_per_epoch == 0 and epoch % cfg.train.save_gap == 0:
                     path = os.path.abspath(os.path.join(ckpt_dir, f"epoch_{epoch}"))
@@ -293,8 +361,10 @@ def main(argv=None) -> dict:
                     log.info("saved checkpoint %s", path)
                 if (eval_dataset is not None and (i + 1) % steps_per_epoch == 0
                         and epoch % cfg.train.eval_every == 0):
-                    evals += _evaluate(writer, i + 1, epoch, cfg, state, assets, eval_dataset,
-                                       batch_size, device, overlays)
+                    if rank == 0:
+                        evals += _evaluate(writer, i + 1, epoch, cfg, state, assets,
+                                           eval_dataset, global_batch, device, overlays)
+                    dist.barrier()
                     t_prev = time.perf_counter()  # the next step's time leaves eval out
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
@@ -302,9 +372,13 @@ def main(argv=None) -> dict:
     final = os.path.abspath(os.path.join(ckpt_dir, "final"))
     save_checkpoint(final, state)
     log.info("done; final checkpoint at %s", final)
-    result = _result(state, final, step_seconds, batch_size, logged, evals)
-    print(json.dumps({"final_step": result["final_step"],
-                      "images_per_s": result["images_per_s"]}), flush=True)
+    result = _result(state, final, step_seconds, global_batch, logged, evals)
+    if rank == 0:
+        print(json.dumps({"final_step": result["final_step"],
+                          "images_per_s": result["images_per_s"], "world": world,
+                          "kernel_launches": {k: c.value
+                                              for k, c in _kernel_counters().items()}}),
+              flush=True)
     return result
 
 

@@ -58,6 +58,14 @@ def augment_draws(gen: torch.Generator | None, batch_size: int, img_shape: tuple
     return draws
 
 
+def take_rows(draws, rows: torch.Tensor):
+    """`augment_draws`' draws (nested, None where a draw is off) at the
+    batch rows `rows`."""
+    if isinstance(draws, dict):
+        return {k: take_rows(v, rows) for k, v in draws.items()}
+    return None if draws is None else draws.index_select(0, rows)
+
+
 def augment_transform(batch: dict, draws: dict | None, img_size: int = 256,
                       noise: float = 0.0, bone_length: float = 0.095) -> dict:
     """uint8 images + raw labels -> augmented, normalized training batch.

@@ -8,7 +8,10 @@ the double metrics, optionally bucketed by an inter-hand mask-IoU vector
 (`iou_0_27w.npy`-style, `apps/eval_interhand.py:230-235`).
 
 Runs on the card (`device=None` means `cuda`) and raises where there is
-none; `device="cpu"` runs the plain versions on the CPU.
+none; `device="cpu"` runs the plain versions on the CPU. With a mesh
+(`parallel/mesh.py`; JAX's `mesh=`, `renderih_tpu/eval/evaluator.py:86-95`)
+the model is replicated on each of its devices and every batch is split
+over them, one contiguous slice a device, and gathered back in order.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from renderih_tpu_torch.data.interhand import IMG_SIZE, PackedInterHand
 from renderih_tpu_torch.eval.metrics import two_hand_metrics
 from renderih_tpu_torch.models.model import model_call_kwargs
 from renderih_tpu_torch.ops.image import normalize_imagenet
-from renderih_tpu_torch.serve import resolve_device
+from renderih_tpu_torch.parallel.mesh import Mesh, split_batch
+from renderih_tpu_torch.serve import replicate, resolve_device
 
 METRIC_KEYS = (
     "ori_mpjpe", "ori_mpvpe", "mpjpe", "mpvpe", "pa_mpjpe", "pa_mpvpe",
@@ -81,6 +85,7 @@ def evaluate_vectors(
     device_cache: bool | None = None,
     device_cache_limit_mb: int = 2048,
     device: torch.device | str | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple:
     """Per-sample metric vectors of `dataset` and the run's timing:
     ({name: (N,) numpy}, {"images_per_sec", "num_samples", "device_cache",
@@ -94,13 +99,23 @@ def evaluate_vectors(
         raise ValueError(f"the model is on {on}, the eval on {device}")
     n = len(dataset)
     batch_size = min(batch_size, n)
+    if mesh is None:
+        mesh = Mesh((device,))  # one device: one replica, the batch whole
+    elif not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), got {mesh!r}")
+    batch_size -= batch_size % mesh.n_data  # divisible global batch, as JAX's
+    if batch_size <= 0:
+        raise ValueError(f"batch_size < the data axis' {mesh.n_data} devices")
     starts = list(range(0, n, batch_size))
     if device_cache is None:
         device_cache = dataset.nbytes / 1e6 <= device_cache_limit_mb
-    fn = make_eval_fn(model, assets, device, convention)
+    replicas = replicate(model, mesh.devices)
+    fns = [make_eval_fn(r, assets, d, convention) for r, d in zip(replicas, mesh.devices)]
 
-    def upload(host: dict) -> tuple:
-        return tuple(torch.from_numpy(host[k]).to(device) for k in _CACHED_KEYS)
+    def upload(host: dict) -> list:
+        """A host batch split over the mesh, each device's slice on that
+        device: [(img_u8, v3d_left, v3d_right)] by device."""
+        return list(zip(*(split_batch(mesh, torch.from_numpy(host[k])) for k in _CACHED_KEYS)))
 
     def host_batch(start: int) -> dict:
         # fixed-size batches: the tail is padded with its last sample, so
@@ -108,34 +123,45 @@ def evaluate_vectors(
         idx = np.minimum(np.arange(start, start + batch_size), n - 1)
         return dataset.batch(idx)
 
+    def run(per_device: list) -> dict:
+        # every device's forward is queued before any result is read
+        ms = [fn(*args) for fn, args in zip(fns, per_device)]
+        keys = list(ms[0])
+        host = np.concatenate([torch.stack([m[k] for k in keys]).cpu().numpy() for m in ms],
+                              axis=1)  # the device syncs
+        return dict(zip(keys, host))
+
     acc: dict = {}
     total_time = upload_s = 0.0
-    with eval_mode(model):
+    with contextlib.ExitStack() as stack:
+        for r in replicas:
+            stack.enter_context(eval_mode(r))
         if device_cache:
-            # the whole split, padded to whole batches, uploaded once; the
-            # batches are slices on the device
+            # the whole split, padded to whole batches, uploaded once,
+            # batch by batch
             t0 = time.perf_counter()
-            cache = upload(dataset.batch(np.minimum(np.arange(len(starts) * batch_size), n - 1)))
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            split = dataset.batch(np.minimum(np.arange(len(starts) * batch_size), n - 1))
+            cache = [upload({k: v[s0:s0 + batch_size] for k, v in split.items()})
+                     for s0 in starts]
+            for d in mesh.devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
             upload_s = time.perf_counter() - t0
         else:
             nxt = host_batch(starts[0])
         for j, s0 in enumerate(starts):
             t0 = time.perf_counter()
             if device_cache:
-                m = fn(*(a[s0:s0 + batch_size] for a in cache))
+                m = run(cache[j])
             else:
                 # dispatch batch j, gather batch j+1 on the host meanwhile
-                m = fn(*upload(nxt))
+                m = run(upload(nxt))
                 if j + 1 < len(starts):
                     nxt = host_batch(starts[j + 1])
-            keys = list(m)
-            host = torch.stack([m[k] for k in keys]).cpu().numpy()  # the device sync
             if s0 > 0:  # the first batch (allocator, cuDNN plans) is not timed
                 total_time += time.perf_counter() - t0
             valid = min(batch_size, n - s0)
-            for k, v in zip(keys, host):
+            for k, v in m.items():
                 acc.setdefault(k, []).append(v[:valid])
     timed_images = max(n - batch_size, 0)
     stats = {"images_per_sec": timed_images / total_time if total_time > 0 else 0.0,
@@ -155,7 +181,7 @@ def evaluate_packed(
     device_cache: bool | None = None,
     device_cache_limit_mb: int = 2048,
     device: torch.device | str | None = None,
-    mesh=None,
+    mesh: Mesh | None = None,
 ) -> dict:
     """Evaluate `dataset` with `model` (on `device`); returns the summary
     of `summarize` with `images_per_sec`, `num_samples`, `device_cache`
@@ -168,14 +194,16 @@ def evaluate_packed(
     gathered on the host while the previous one runs. Batches have one
     size, the tail padded with its last sample. images/s leaves out the
     first batch and counts each batch to its metrics on the host. The
-    model's train/eval mode is left as it was. Data-parallel eval
-    (`mesh`) is not ported yet (ROADMAP A.5): any value but None raises.
+    model's train/eval mode is left as it was.
+
+    `mesh` (`parallel.mesh.make_mesh`; `model` on its first device):
+    `batch_size` is cut to a multiple of the data axis, the model is
+    replicated on every device, each batch runs split over them and the
+    metric vectors are gathered in order; the device cache holds each
+    device's slices on that device.
     """
-    if mesh is not None:
-        raise NotImplementedError("data-parallel eval (mesh=) is not ported yet "
-                                  "(ROADMAP.md A.5)")
     vectors, stats = evaluate_vectors(cfg, model, assets, dataset, batch_size, convention,
-                                      device_cache, device_cache_limit_mb, device)
+                                      device_cache, device_cache_limit_mb, device, mesh)
     return {**summarize(vectors, iou), **stats}
 
 

@@ -14,6 +14,11 @@
 
 The engine runs on the card (`device=None` means `cuda`) and raises where
 there is none; pass `device="cpu"` to run the plain versions on the CPU.
+With a mesh (`parallel/mesh.py`; JAX's `mesh=`, `renderih_tpu/serve.py:
+67-72,109-122`) every bucket is rounded up to a multiple of the data
+axis, the weights are replicated on each of its devices, and each bucket
+runs split over them, one contiguous slice a device, gathered in order on
+the first.
 
     engine = InferenceEngine(cfg)
     out = engine.predict(images_u8)          # (N,256,256,3) uint8 -> dict
@@ -36,6 +41,7 @@ from renderih_tpu_torch.assets import Assets, load_assets
 from renderih_tpu_torch.config import Config
 from renderih_tpu_torch.models import init_model, model_call_kwargs
 from renderih_tpu_torch.ops.image import normalize_imagenet
+from renderih_tpu_torch.parallel.mesh import Mesh, gather, split_batch
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 
@@ -47,6 +53,15 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
         raise RuntimeError("no CUDA device: the port runs on the card; pass "
                            "device='cpu' to run its plain versions on the CPU")
     return dev
+
+
+def replicate(model: torch.nn.Module, devices: list) -> list:
+    """`model` on each of `devices`: itself on the first, which must be
+    where it is, and a copy on each of the others."""
+    on, first = next(model.parameters()).device, torch.device(devices[0])
+    if on.type != first.type or first.index not in (None, on.index):
+        raise ValueError(f"the model is on {on}, the mesh's first device is {first}")
+    return [model] + [copy.deepcopy(model).to(d) for d in devices[1:]]
 
 
 class InferenceEngine:
@@ -61,12 +76,23 @@ class InferenceEngine:
         device: torch.device | str | None = None,
         seed: int = 0,
         checkpoint: str | None = None,
+        mesh: Mesh | None = None,
     ):
         # own copy: never mutate a caller's Config
         self.cfg = copy.deepcopy(cfg) if cfg is not None else Config()
-        self.device = resolve_device(device)
-        self.assets = assets if assets is not None else load_assets(self.cfg.assets)
         self.buckets = tuple(sorted(buckets))
+        if mesh is not None:
+            want, first = torch.device(device or mesh.devices[0]), mesh.devices[0]
+            if want.type != first.type or want.index not in (None, first.index):
+                raise ValueError(f"device {device} is not the mesh's first {first}")
+            device = mesh.devices[0]
+            # as JAX's sharded forward needs: batches divisible by the data axis
+            n = mesh.n_data
+            self.buckets = tuple(sorted({-(-b // n) * n for b in self.buckets}))
+        self.device = resolve_device(device)
+        # without a mesh, one of this device: one replica, the bucket whole
+        self.mesh = mesh if mesh is not None else Mesh((self.device,))
+        self.assets = assets if assets is not None else load_assets(self.cfg.assets)
         model = init_model(self.cfg, self.assets,
                            torch.Generator().manual_seed(seed))
         if checkpoint is not None:
@@ -78,16 +104,20 @@ class InferenceEngine:
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
-        self._call_kwargs = model_call_kwargs(self.assets, self.device)
+        self._replicas = [(r, model_call_kwargs(self.assets, d)) for d, r in
+                          zip(self.mesh.devices, replicate(self.model, self.mesh.devices))]
 
     def _forward(self, img_u8: np.ndarray) -> dict:
-        x = torch.from_numpy(np.ascontiguousarray(img_u8)).to(self.device)
+        """The bucket's slices on the mesh's devices (every forward queued
+        before any is gathered), gathered in order on the first device."""
+        parts = split_batch(self.mesh, torch.from_numpy(np.ascontiguousarray(img_u8)))
+        outs = []
         with torch.inference_mode():
-            img = normalize_imagenet(x.float() / 255.0)
-            out = self.model(img, **self._call_kwargs)
-        return {f"{key}_{hand}": getattr(out, key)[hand]
-                for key in ("verts3d", "verts2d", "scale", "trans2d")
-                for hand in ("left", "right")}
+            for (model, kwargs), x in zip(self._replicas, parts):
+                outs.append(model(normalize_imagenet(x.float() / 255.0), **kwargs))
+            return {f"{key}_{hand}": gather([getattr(o, key)[hand] for o in outs], self.device)
+                    for key in ("verts3d", "verts2d", "scale", "trans2d")
+                    for hand in ("left", "right")}
 
     def warmup(self) -> None:
         """Run every bucket once (first-request latency -> steady state)."""

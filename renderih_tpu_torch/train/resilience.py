@@ -13,6 +13,10 @@
     EMA may have written part of it) saves nothing and re-raises: the
     state is neither the old one nor the new one, and the newest
     `epoch_N` checkpoint is where to resume.
+
+`crash_checkpoint=False` re-raises where a crash checkpoint would be
+saved; with `retries=0` every failure then re-raises at once. The
+data-parallel trainer runs its steps so at world > 1 (`apps/train.py`).
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ def is_transient(err: BaseException) -> bool:
 
 
 def run_step_guarded(step_thunk, state, checkpoint_dir: str, *, retries: int = 3,
-                     backoff_s: float = 10.0, save_fn=None, sleep=time.sleep):
+                     backoff_s: float = 10.0, crash_checkpoint: bool = True, save_fn=None,
+                     sleep=time.sleep):
     """`step_thunk()` (one step on `state`) with retries of transient
     failures and a crash save of `state` before anything else re-raises."""
     if save_fn is None:
@@ -59,6 +64,8 @@ def run_step_guarded(step_thunk, state, checkpoint_dir: str, *, retries: int = 3
                     torch.cuda.empty_cache()
                 sleep(wait)
                 continue
+            if not crash_checkpoint:
+                raise
             path = os.path.abspath(os.path.join(checkpoint_dir, "crash"))
             try:
                 save_fn(path, state)

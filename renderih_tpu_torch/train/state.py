@@ -16,6 +16,16 @@ Optimizers (`make_optimizer`), as optax computes them:
     g = (p0 − p1)/lr; the equivalence tests use it);
   * rmsprop: `OptaxRMSprop`, optax's `rmsprop` (decay 0.9, g·rsqrt(ν + eps)
     with eps inside the root), which `torch.optim.RMSprop` is not.
+In a process group with `train.zero1` the optimizer is
+`ZeroRedundancyOptimizer` over the same class and settings, at any world
+size (JAX's `zero1_sharding`): each rank keeps and updates the moments of
+its share of the parameters, then the updated parameters are broadcast;
+the arithmetic is the unsharded optimizer's, parameter by parameter.
+Checkpoints do not depend on the world size: `save_checkpoint` gathers a
+sharded optimizer's state on rank 0 (a collective: every rank calls it)
+and rank 0 alone writes what a one-device run writes; `restore_checkpoint`
+loads that into a sharded or an unsharded optimizer alike.
+
 `freeze_upsample` gives the 252->778 upsample weight `requires_grad=False`
 and leaves it out of the optimizer: no update, no weight decay
 (`core/lijun_trainer.py:115-116`). Every other parameter, the aux heads'
@@ -31,8 +41,10 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.distributed.optim import ZeroRedundancyOptimizer
 
 from renderih_tpu_torch.config import Config
+from renderih_tpu_torch.parallel import dist
 from renderih_tpu_torch.train.schedule import Schedule, warmup_step_decay_schedule
 
 CHECKPOINT_FILE = "state.pt"
@@ -63,18 +75,23 @@ def trainable_parameters(model: nn.Module) -> list:
 
 
 def make_optimizer(cfg: Config, params: list) -> torch.optim.Optimizer:
-    """The optimizer of `cfg.train.optimizer` over `params`; the train step
-    sets its learning rate from the schedule before each update."""
+    """The optimizer of `cfg.train.optimizer` over `params`, sharded over
+    the process group under `train.zero1`; the train step sets its
+    learning rate from the schedule before each update."""
     name = cfg.train.optimizer
-    fused = bool(params) and params[0].is_cuda
+    fused = (bool(params) and params[0].is_cuda) or None
     if name == "adamw":
-        return torch.optim.AdamW(params, lr=cfg.train.lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=cfg.train.weight_decay, fused=fused or None)
-    if name == "rmsprop":  # reference alternative path (`core/lijun_trainer.py:131-144`)
-        return OptaxRMSprop(params, lr=cfg.train.lr)
-    if name == "sgd":
-        return torch.optim.SGD(params, lr=cfg.train.lr, fused=fused or None)
-    raise ValueError(f"unknown optimizer {name}")
+        cls, kwargs = torch.optim.AdamW, dict(lr=cfg.train.lr, betas=(0.9, 0.999), eps=1e-8,
+                                              weight_decay=cfg.train.weight_decay, fused=fused)
+    elif name == "rmsprop":  # reference alternative path (`core/lijun_trainer.py:131-144`)
+        cls, kwargs = OptaxRMSprop, dict(lr=cfg.train.lr)
+    elif name == "sgd":
+        cls, kwargs = torch.optim.SGD, dict(lr=cfg.train.lr, fused=fused)
+    else:
+        raise ValueError(f"unknown optimizer {name}")
+    if cfg.train.zero1 and dist.active():
+        return ZeroRedundancyOptimizer(params, optimizer_class=cls, **kwargs)
+    return cls(params, **kwargs)
 
 
 def make_schedule(cfg: Config, steps_per_epoch: int) -> Schedule:
@@ -105,13 +122,45 @@ def create_train_state(cfg: Config, model: nn.Module, steps_per_epoch: int) -> T
                       schedule=make_schedule(cfg, steps_per_epoch), ema=ema)
 
 
+def _hyperparameters(group: dict) -> dict:
+    return {k: v for k, v in group.items() if k != "params"}
+
+
+def _gathered_state_dict(zero: ZeroRedundancyOptimizer) -> dict:
+    """A sharded optimizer's state, gathered, in its unsharded optimizer's
+    format (every rank calls it; rank 0 gets the dict, the others None)."""
+    zero.consolidate_state_dict(to=0)
+    if dist.rank() != 0:
+        return None
+    sd = zero.state_dict()  # the states under the unsharded indices, the class's groups
+    return {"state": sd["state"], "param_groups": sd["param_groups"]}
+
+
+def _load_sharded(zero: ZeroRedundancyOptimizer, sd: dict) -> None:
+    """An unsharded optimizer's state dict into this rank's shard."""
+    index = {p: i for i, p in enumerate(p for g in zero.param_groups for p in g["params"])}
+    mine = [p for g in zero.optim.param_groups for p in g["params"]]
+    hyper = _hyperparameters(sd["param_groups"][0])
+    zero.optim.load_state_dict({
+        "state": {j: sd["state"][index[p]] for j, p in enumerate(mine)
+                  if index[p] in sd["state"]},
+        "param_groups": [dict(hyper, params=list(range(len(mine))))]})
+    for g in zero.param_groups:
+        g.update({k: hyper[k] for k in _hyperparameters(g) if k in hyper})
+
+
 def save_checkpoint(path: str, state: TrainState) -> None:
     """The full state into the directory `path` (written to a temporary
-    file, then renamed: a crash mid-write leaves the old checkpoint)."""
+    file, then renamed: a crash mid-write leaves the old checkpoint). In
+    a process group every rank calls it and rank 0 writes."""
+    opt = state.optimizer
+    optimizer = (_gathered_state_dict(opt) if isinstance(opt, ZeroRedundancyOptimizer)
+                 else opt.state_dict())
+    if dist.rank() != 0:
+        return
     os.makedirs(path, exist_ok=True)
     blob = {"step": state.step, "steps_taken": state.steps_taken,
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(), "ema": state.ema}
+            "model": state.model.state_dict(), "optimizer": optimizer, "ema": state.ema}
     tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
     torch.save(blob, tmp)
     os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
@@ -129,7 +178,10 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     device = next(state.model.parameters()).device
     blob = _load(path, device)
     state.model.load_state_dict(blob["model"])
-    state.optimizer.load_state_dict(blob["optimizer"])
+    if isinstance(state.optimizer, ZeroRedundancyOptimizer):
+        _load_sharded(state.optimizer, blob["optimizer"])
+    else:
+        state.optimizer.load_state_dict(blob["optimizer"])
     state.step = int(blob["step"])
     state.steps_taken = int(blob.get("steps_taken", blob["step"]))
     if (blob["ema"] is None) != (state.ema is None):

@@ -29,6 +29,19 @@ backward, the optimizer update. As in the JAX package:
 `make_augmented_step` puts the on-device gather's batch through
 `device_augment` and the step, drawing both from one generator seeded per
 step (the counterpart of `make_fused_cached_step`).
+
+In a process group (`parallel/dist.py`; `make_train_step(mesh=...)` in
+JAX) each rank steps on its rows of the global batch, and the step is
+JAX's over the whole of it: BatchNorm statistics global
+(`models/layers.py:BatchNorm2d`); after the backward the gradients are
+averaged over the ranks in one bucketed all-reduce (not DDP's hooks: the
+zero gradient of an unreached parameter is filled in after the backward,
+and is averaged like any other); the loss terms and the NaN guard's flag
+are averaged in one more all-reduce, so every rank logs the global-mean
+terms and a non-finite loss or gradient on any rank skips the update on
+every rank, each restoring its BatchNorm statistics. With `train.zero1`
+the optimizer is sharded (`train/state.py`). At world 1 the step is the
+one-device step, bit for bit.
 """
 
 from __future__ import annotations
@@ -38,7 +51,7 @@ import torch
 
 from renderih_tpu_torch.assets import Assets, assets_to
 from renderih_tpu_torch.config import Config
-from renderih_tpu_torch.data.pipeline import device_augment
+from renderih_tpu_torch.data.pipeline import augment_draws, augment_transform, take_rows
 from renderih_tpu_torch.losses.graph_loss import (
     GraphLossWeights,
     aux_losses,
@@ -48,6 +61,7 @@ from renderih_tpu_torch.losses.mano_loss import mano_param_losses
 from renderih_tpu_torch.models.model import model_call_kwargs
 from renderih_tpu_torch.ops.dropout import dropout_generator
 from renderih_tpu_torch.ops.heatmap import joint_heatmap_targets
+from renderih_tpu_torch.parallel import dist
 from renderih_tpu_torch.train.resilience import UpdateFailed
 from renderih_tpu_torch.train.state import TrainState, trainable_parameters
 
@@ -156,11 +170,21 @@ def make_train_step(cfg: Config, assets: Assets, steps_per_epoch: int,
         for p in params:  # a parameter no loss term reaches (the JAX gradient: 0)
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        grouped = dist.active()
+        if grouped:
+            dist.average_gradients(params)
         ok = True
-        if nan_guard:
+        if nan_guard or grouped:
             found = torch.zeros(1, device=device)
-            torch._amp_foreach_non_finite_check_and_unscale_([p.grad for p in params],
-                                                             found, one)
+            if nan_guard:
+                torch._amp_foreach_non_finite_check_and_unscale_([p.grad for p in params],
+                                                                 found, one)
+            if grouped:  # the terms and the flag, averaged over the ranks
+                keys = list(terms)
+                packed = dist.mean_over_ranks(
+                    torch.cat([torch.stack([terms[k] for k in keys]), found]))
+                terms, found = dict(zip(keys, packed[:-1].unbind())), packed[-1:]
+        if nan_guard:
             ok = not bool(found + torch.isfinite(terms["total"]).logical_not())  # host sync
             terms["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0, device=device)
         if ok:
@@ -176,28 +200,48 @@ def make_train_step(cfg: Config, assets: Assets, steps_per_epoch: int,
     return step
 
 
-def step_seed(seed: int, step_i: int) -> int:
+def step_seed(seed: int, step_i: int, *more: int) -> int:
     """The seed of step `step_i`'s generator: distinct for every
-    (seed, step), the same on a resumed run."""
-    return int(np.random.SeedSequence([seed, step_i]).generate_state(1, np.uint64)[0])
+    (seed, step, *more), the same on a resumed run."""
+    return int(np.random.SeedSequence([seed, step_i, *more]).generate_state(1, np.uint64)[0])
 
 
 def make_augmented_step(cfg: Config, step_fn, seed: int, device: torch.device | str):
-    """`fn(state, raw_batch, step_i) -> terms`: `device_augment` of a raw
-    batch (uint8 images and labels on `device`), then `step_fn`; the
-    augmentation and dropout draw from one generator seeded with
-    `step_seed(seed, step_i)`."""
+    """`fn(state, raw_batch, step_i) -> terms`: the training augmentation
+    of a raw batch (uint8 images and labels on `device`), then `step_fn`.
+    The augmentation draws from a generator seeded with `step_seed(seed,
+    step_i)`, and so does dropout after it.
+
+    In a process group `raw_batch` is this rank's rows of the global batch
+    (`dist.rank_rows`): the draws are made for the whole global batch on
+    every rank and each keeps its rows, so W ranks augment as one device
+    does at the same global batch (JAX's draws do not depend on the
+    mesh). Rank 0 continues that generator into dropout; rank r > 0 draws
+    its dropout masks from a generator seeded with `step_seed(seed,
+    step_i, r)`: the same distribution, other draws than one device's
+    (ROADMAP §C). With `data.noise > 0` every rank draws the Gaussian
+    noise of every image of the global batch."""
+    device = torch.device(device)
     gen = torch.Generator(device=device)
     d = cfg.data
+    world, rank, accum = dist.world(), dist.rank(), max(1, int(cfg.train.grad_accum))
+    drop_gen = gen if rank == 0 else torch.Generator(device=device)
 
     def fn(state: TrainState, raw: dict, step_i: int):
         gen.manual_seed(step_seed(seed, step_i))
-        batch = device_augment(raw, gen, img_size=cfg.model.img_size,
-                               theta_range=tuple(d.theta_range),
-                               scale_range=tuple(d.scale_range),
-                               uv_range=tuple(d.uv_range), flip=d.flip, noise=d.noise,
-                               bone_length=d.bone_length, train=True)
-        return step_fn(state, batch, gen)
+        b, _, _, c = raw["img_u8"].shape
+        g = b * world
+        draws = augment_draws(gen, g, (g, cfg.model.img_size, cfg.model.img_size, c),
+                              tuple(d.theta_range), tuple(d.scale_range),
+                              tuple(d.uv_range), d.flip, d.noise)
+        if world > 1:
+            rows = torch.from_numpy(dist.rank_rows(g, world, rank, accum)).to(device)
+            draws = take_rows(draws, rows)
+        batch = augment_transform(raw, draws, img_size=cfg.model.img_size, noise=d.noise,
+                                  bone_length=d.bone_length)
+        if rank > 0:
+            drop_gen.manual_seed(step_seed(seed, step_i, rank))
+        return step_fn(state, batch, drop_gen)
 
     return fn
 

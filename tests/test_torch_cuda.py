@@ -563,3 +563,45 @@ def test_gan_prior_on_card_matches_cpu_and_refines(cuda, tmp_path):
     synth_gen.main(["--out", str(tmp_path), "--n", "1", "--batch", "1", "--optimize",
                     "--opt_iters", "60", "--prior", "gan"])
     assert sdf.launches.value - n == 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_in_a_world1_nccl_group_is_the_one_device_path(cuda, tmp_path, dtype):
+    """`models/layers.py:BatchNorm2d` in an NCCL group of one rank (a
+    `file://` store) against the same module with no group: output, dx,
+    dγ, dβ and the running statistics equal bit for bit (a group of one
+    takes the one-device path); the train step's gradient all-reduce and
+    term averaging at world 1 leave the gradients bit for bit too."""
+    import torch.distributed as tdist
+
+    from renderih_tpu_torch.models.layers import BatchNorm2d
+    from renderih_tpu_torch.parallel import dist
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 64, 16, 16, device=cuda, generator=gen).to(dtype)
+    x = (3.0 * x + 1.0).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(x.shape, device=cuda, generator=gen).to(dtype)
+
+    def run():
+        mod = BatchNorm2d(64).to(cuda).train()
+        with torch.no_grad():
+            mod.weight.uniform_(0.5, 1.5, generator=gen)
+            mod.bias.uniform_(-0.5, 0.5, generator=gen)
+        xi = x.clone().requires_grad_(True)
+        y = mod(xi)
+        (y.float() * w.float()).sum().backward()
+        params = [mod.weight, mod.bias]
+        dist.average_gradients(params)
+        return [y, xi.grad, mod.weight.grad, mod.bias.grad, mod.running_mean, mod.running_var]
+
+    gen.manual_seed(5)
+    alone = run()
+    dist.init(cuda, init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        assert tdist.get_backend() == "nccl" and dist.world() == 1
+        gen.manual_seed(5)
+        grouped = run()
+    finally:
+        tdist.destroy_process_group()
+    for a, b in zip(alone, grouped):
+        assert torch.equal(a, b)

@@ -134,9 +134,11 @@ def test_device_cache_and_streaming_give_equal_results(setup):
 
 
 def test_eval_keeps_the_model_mode_and_rejects_a_mesh(setup):
+    """The model's mode is kept; a mesh that is not a `parallel.mesh.Mesh`
+    is rejected (data-parallel eval itself: tests/test_torch_parallel_serve.py)."""
     model = setup["model"].train()
     try:
-        with pytest.raises(NotImplementedError, match="A.5"):
+        with pytest.raises(TypeError, match="Mesh"):
             evaluate_packed(setup["cfg"], model, setup["assets"], setup["dataset"],
                             device="cpu", mesh=object())
         evaluate_vectors(setup["cfg"], model, setup["assets"], setup["dataset"],
