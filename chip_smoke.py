@@ -279,7 +279,26 @@ line:
    the CPU tests' limits (tests/test_torch_parallel.py): the terms within
    1e-4, the BatchNorm statistics within 1e-5, every gradient within
    1.5e-3 of its tensor's scale and 80% within 1e-4; the two ranks equal.
-22. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+22. The dataset tools (`tools/`, `data/image_io.py`, `data/native_reader.py`,
+   `mano/ik.py`), on a machine without cv2: (a) `imread_rgb` on every
+   committed JPEG of `tests/data/torch_codec/` equal bit for bit to the
+   stored cv2 decode, and the decode rate (compressed MB/s, megapixels/s);
+   (b) a fake official InterHand2.6M tree of `DATA_FRAMES` interacting
+   frames at 480x640 (PNGs and npy written here, MANO npz from the
+   synthetic MANO), packed by `tools.dataset_gen.interhand_gen` on the card
+   and again with `--device cpu`: the images equal bit for bit, every
+   label within 1e-5 of its largest magnitude (1e-4 for v2d/j2d), packed
+   frames/s of each; (c) `handdict_gen --from_joints` on `DATA_IK_HANDS`
+   joints-only right hands (layout B, 64x64 images resized to 256²) at the
+   default 200 IK steps in one `--ik_batch 256` chunk on the card: the
+   mean joint residual below the CPU tests' 1.5 mm, fitted hands/s;
+   (d) `PackedInterHand.load(use_native=True)` on (b)'s split: its native
+   gathers equal the memmap's; (e) `apps.train --data` (b)'s split, 3
+   steps at batch 32 on `Config()`: exactly 26 B2 launches a step, all on
+   `wgmma`, no B1, every term finite; (f) `apps.eval_interhand --data` the
+   same split at `--bs 32`: 13 B2 (all `wgmma`) and 24 B1 launches a
+   forward, the summary finite.
+23. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
    batch 256 in the flagship's dtypes, B2 per training step at batch 64
    and per recipe training step at batch 128, B3 per refined sample; B1
    per ViT-B forward in its dtypes, B2 per HRNet-W32 forward and training
@@ -349,6 +368,11 @@ VARIANT_TRAIN_STEPS = 6  # phase 18: the variants' training at batch 64
 LIB_BATCH = 8  # phase 19: PointAttn's (B, V, V, F) tensors are 3.9 GB at 256 and V = 244
 PRIOR_STEPS = 300  # phase 20: train_pose_prior on the card
 DDP_STEPS = 9  # phase 21: torchrun world 1 against the plain trainer, batch 64
+DATA_FRAMES = 64  # phase 22: interacting frames of the fake official tree, 480x640
+DATA_IK_HANDS = 256  # phase 22: joints-only hands fitted in one --ik_batch chunk
+DATA_STEPS, DATA_BATCH = 3, 32  # phase 22: apps.train and apps.eval_interhand on the split
+DATA_LABEL_RTOL = {"v2d": 1e-4, "j2d": 1e-4}  # else 1e-5, of each label's largest |value|
+DATA_IK_MEAN_RESIDUAL = 1.5e-3  # tests/test_ik.py's bar (template scale, metres)
 WORLD2_BATCH = 4  # phase 21: a rank's batch of the two ranks on one card (global 8)
 
 
@@ -1607,6 +1631,285 @@ def eval_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
               f"{cli['images_per_sec']:.1f} images/s, {time.perf_counter() - t0:.1f} s in all",
               flush=True)
         result.update(cli=cli, cli_launches=cli_launches)
+    torch.cuda.empty_cache()
+    return result
+
+
+def _png_bytes(rgb) -> bytes:
+    """An 8-bit RGB PNG of `rgb` (H, W, 3): filter 0 on every row, zlib
+    level 1."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _official_tree(root: str, n: int, seed: int) -> str:
+    """A fake official InterHand2.6M release (`tests/test_interhand_gen.py`'s
+    layout) of `n` interacting frames at 480x640, noise PNGs, with the
+    synthetic MANO's npz files; returns the split name."""
+    import json
+    import os
+
+    import numpy as np
+
+    from renderih_tpu_torch.mano.params import MANO_PARENTS, make_synthetic_mano
+
+    split, rng = "train", np.random.default_rng(seed)
+    ann_dir = os.path.join(root, "annotations", split)
+    os.makedirs(ann_dir)
+    images, annotations, mano = [], [], {}
+    for i in range(n):
+        cap, frame = i % 4, 100 + i
+        fname = f"Capture{cap}/cam400002/image{frame}.png"
+        path = os.path.join(root, "images", split, fname)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(_png_bytes(rng.integers(0, 255, (480, 640, 3), np.uint8)))
+        images.append({"id": i, "file_name": fname, "width": 640, "height": 480,
+                       "capture": cap, "camera": 400002, "frame_idx": frame})
+        annotations.append({"id": 10 * i, "image_id": i, "hand_type": "interacting"})
+        mano.setdefault(str(cap), {})[str(frame)] = {
+            hand: {"pose": rng.normal(0.0, 0.15, 48).tolist(),
+                   "shape": rng.normal(0.0, 0.5, 10).tolist(),
+                   "trans": [float(rng.normal(0.0, 0.01)), float(rng.normal(0.0, 0.01)), dz]}
+            for hand, dz in (("right", 0.02), ("left", -0.02))}
+    cam = {"campos": {"400002": [0.0, 0.0, -600.0]}, "camrot": {"400002": np.eye(3).tolist()},
+           "focal": {"400002": [500.0, 500.0]}, "princpt": {"400002": [320.0, 240.0]}}
+    for name, obj in (("data", {"images": images, "annotations": annotations}),
+                      ("camera", {str(c): cam for c in range(4)}),
+                      ("MANO_NeuralAnnot", mano)):
+        with open(os.path.join(ann_dir, f"InterHand2.6M_{split}_{name}.json"), "w") as f:
+            json.dump(obj, f)
+    for hand in ("left", "right"):
+        m = make_synthetic_mano(seed=0, is_right=hand == "right")
+        np.savez(os.path.join(root, f"mano_{hand}.npz"),
+                 **{k: getattr(m, k).numpy() for k in (
+                     "v_template", "shapedirs", "posedirs", "J_regressor", "weights",
+                     "hands_components", "hands_mean")},
+                 faces=m.faces.numpy().astype(np.int32),
+                 kintree_parents=np.asarray(MANO_PARENTS, np.int32),
+                 is_right=np.asarray(hand == "right"))
+    return split
+
+
+def dataset_tools_phase(cfg, assets, gpu_line: str) -> dict:
+    """The dataset tools on the card machine (see the module docstring,
+    phase 22)."""
+    import glob
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import eval_interhand
+    from renderih_tpu_torch.apps import train as train_app
+    from renderih_tpu_torch.data.image_io import imread_rgb
+    from renderih_tpu_torch.data.interhand import PackedInterHand
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.mano import ik
+    from renderih_tpu_torch.mano.layer import mano_forward
+    from renderih_tpu_torch.mano.params import make_synthetic_mano, to_device
+    from renderih_tpu_torch.models import HandNet
+    from renderih_tpu_torch.ops.rotation import rodrigues
+    from renderih_tpu_torch.tools.dataset_gen import handdict_gen, interhand_gen
+
+    result = {}
+    # (a) the committed JPEGs against cv2's stored decode, and the rate
+    paths = sorted(glob.glob(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                          "tests", "data", "torch_codec", "*.jpg")))
+    if len(paths) < 6:
+        raise AssertionError(f"codec fixtures missing: {paths}")
+    for path in paths:
+        if not np.array_equal(imread_rgb(path), np.load(path[:-4] + ".npz")["rgb"]):
+            raise AssertionError(f"imread_rgb({path}) differs from cv2's decode")
+    n_bytes = sum(os.path.getsize(p) for p in paths)
+    n_px = sum(np.load(p[:-4] + ".npz")["rgb"].shape[0] * np.load(p[:-4] + ".npz")["rgb"]
+               .shape[1] for p in paths)
+    reps, t0 = 20, time.perf_counter()
+    for _ in range(reps):
+        for path in paths:
+            imread_rgb(path)
+    dt = (time.perf_counter() - t0) / reps
+    result["decode"] = dict(files=len(paths), mb_per_s=n_bytes / dt / 1e6, mpx_per_s=n_px / dt / 1e6)
+    print(f"[data] (a) imread_rgb on {len(paths)} committed JPEGs ({n_bytes / 1e3:.1f} kB; "
+          f"4:2:0, 4:2:2, 4:4:4, grey, restart markers): bit for bit the stored cv2 decode; "
+          f"{result['decode']['mb_per_s']:.1f} MB/s compressed, "
+          f"{result['decode']['mpx_per_s']:.1f} Mpx/s (one host thread)", flush=True)
+
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        # (b) the official tree packed on the card and on the CPU
+        tree = os.path.join(root, "official")
+        split = _official_tree(tree, DATA_FRAMES, seed=22)
+        argv = ["--data", tree, "--split", split, "--mano-left", f"{tree}/mano_left.npz",
+                "--mano-right", f"{tree}/mano_right.npz"]
+        packed, seconds = {}, {}
+        for dev in (DEVICE, "cpu"):
+            out = os.path.join(root, f"packed_{dev}")
+            t0 = time.perf_counter()
+            if interhand_gen.main(argv + ["--out", out, "--device", dev]) != DATA_FRAMES:
+                raise AssertionError(f"interhand_gen on {dev} packed the wrong frame count")
+            seconds[dev], packed[dev] = time.perf_counter() - t0, out
+        card, cpu = (PackedInterHand.load(packed[d], split, use_native=False)
+                     for d in (DEVICE, "cpu"))
+        if not np.array_equal(np.asarray(card.images), np.asarray(cpu.images)):
+            diff = np.abs(np.asarray(card.images, np.int16) - np.asarray(cpu.images))
+            raise AssertionError(f"card and CPU packs differ: max {diff.max()} on "
+                                 f"{(diff > 0).mean():.2e} of bytes")
+        gaps = {}
+        for k, ref in cpu.labels.items():
+            scale = max(float(np.abs(ref).max()), 1e-30)
+            gaps[k] = float(np.abs(card.labels[k].astype(np.float64) - ref).max()) / scale
+            if gaps[k] > DATA_LABEL_RTOL.get(k.split("_")[0], 1e-5):
+                raise AssertionError(f"{k}: card vs CPU {gaps[k]:.3e} of its largest |value|")
+        if not np.asarray(card.images).any():
+            raise AssertionError("interhand_gen cropped all-black images")
+        worst = max(gaps, key=gaps.get)
+        result["interhand_gen"] = dict(frames=DATA_FRAMES, seconds=seconds, label_gaps=gaps,
+                                       frames_per_s={d: DATA_FRAMES / t for d, t in seconds.items()})
+        print(f"[data] (b) interhand_gen, {DATA_FRAMES} interacting 480x640 frames: images "
+              f"bit for bit card vs CPU; labels: worst {worst} {gaps[worst]:.3e} of its largest "
+              f"|value|; {DATA_FRAMES / seconds[DEVICE]:.1f} frames/s with MANO on the card, "
+              f"{DATA_FRAMES / seconds['cpu']:.1f} on the CPU (decode, MANO, crop; one host "
+              f"thread) on {gpu_line}", flush=True)
+
+        # (c) joints-only hands fitted on the card
+        rng = np.random.default_rng(23)
+        m_right = make_synthetic_mano(seed=0, is_right=True)
+        n = DATA_IK_HANDS
+        with torch.no_grad():
+            root_r = rodrigues(torch.from_numpy(rng.normal(0, 0.5, (n, 3)).astype(np.float32)))
+            _, j_gt = mano_forward(
+                m_right, root_r, torch.from_numpy(rng.normal(0, 0.4, (n, 45)).astype(np.float32)),
+                torch.from_numpy(rng.normal(0, 0.5, (n, 10)).astype(np.float32)),
+                center_idx=None, use_pca=False)
+        j_gt = j_gt.numpy() + rng.normal(0, 0.2, (n, 1, 3)).astype(np.float32)
+        hd_dir = os.path.join(root, "handdict", "all")
+        os.makedirs(hd_dir)
+        for i in range(n):
+            left = {"joints3d": rng.normal(0, 0.05, (21, 3)).astype(np.float32),
+                    "verts3d": rng.normal(0, 0.05, (778, 3)).astype(np.float32)}
+            np.save(os.path.join(hd_dir, f"{i}.npy"), {
+                "img": rng.integers(0, 255, (64, 64, 3), np.uint8), "left": left,
+                "right": {"joints3d": j_gt[i]}})
+        fit_s = []
+
+        def timed_fit(*a, **kw):
+            t = time.perf_counter()
+            handdict_gen_fit(*a, **kw)  # ends on the card's results, copied to the host
+            fit_s.append(time.perf_counter() - t)
+
+        handdict_gen_fit = handdict_gen.fit_joints_only
+        handdict_gen.fit_joints_only = timed_fit
+        try:
+            hd_out = os.path.join(root, "handdict_packed")
+            handdict_gen.main(["--data", os.path.join(root, "handdict"), "--split", "test",
+                               "--out", hd_out, "--from_joints", "--ik_batch", str(n),
+                               "--device", DEVICE])
+        finally:
+            handdict_gen.fit_joints_only = handdict_gen_fit
+        lab = np.load(os.path.join(hd_out, "test_labels.npz"))
+        dev = torch.device(DEVICE)
+        with torch.no_grad():
+            residual = ik._joint_residual(
+                to_device(m_right, dev), torch.as_tensor(lab["pose_right"][:, :3], device=dev),
+                torch.as_tensor(lab["pose_right"][:, 3:], device=dev),
+                torch.as_tensor(lab["shape_right"], device=dev),
+                torch.as_tensor(j_gt, device=dev)).cpu().numpy()
+        if not (np.isfinite(residual).all() and residual.mean() < DATA_IK_MEAN_RESIDUAL
+                and np.isfinite(lab["v3d_right"]).all() and lab["v3d_right"].any()):
+            raise AssertionError(f"IK fit: mean joint residual {residual.mean():.3e}")
+        result["ik"] = dict(hands=n, seconds=fit_s[0], hands_per_s=n / fit_s[0],
+                            mean_residual=float(residual.mean()),
+                            max_residual=float(residual.max()))
+        print(f"[data] (c) handdict_gen --from_joints, {n} joints-only hands in one --ik_batch "
+              f"{n} chunk, 200 IK steps on the card: mean joint residual "
+              f"{1e3 * residual.mean():.3f} mm (max {1e3 * residual.max():.3f}; limit "
+              f"{1e3 * DATA_IK_MEAN_RESIDUAL:g} mm) at template scale; {n / fit_s[0]:.1f} "
+              f"hands/s ({fit_s[0]:.2f} s) on {gpu_line}", flush=True)
+
+        # (d) the native reader against the memmap
+        native = PackedInterHand.load(packed[DEVICE], split, use_native=True)
+        if native.reader is None:
+            raise AssertionError("use_native=True did not take the native reader")
+        idx = np.random.default_rng(24).integers(0, DATA_FRAMES, 4 * DATA_BATCH)
+        got, want = native.batch(idx), card.batch(idx)
+        if not all(np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError("the native reader's gather differs from the memmap's")
+        t0 = time.perf_counter()
+        for _ in range(20):
+            native.batch(idx)
+        gather_ms = (time.perf_counter() - t0) / 20 * 1e3
+        result["native_gather_ms"] = gather_ms
+        print(f"[data] (d) PackedInterHand.load(use_native=True): {len(idx)} random samples "
+              f"gathered through csrc/packed_reader.cpp equal the memmap's; {gather_ms:.2f} ms a "
+              f"gather", flush=True)
+
+        # (e) training on the packed split
+        per_fwd = per_forward(cfg, assets)
+        yaml = _train_yaml(cfg, root, "data22", batch_size=DATA_BATCH, log_every=1,
+                           eval_every=1000, save_gap=1000)
+        for counter in _counters():
+            counter.reset()
+        run = train_app.main(["--cfg", yaml, "--data", packed[DEVICE], "--steps",
+                              str(DATA_STEPS), "--device", DEVICE])
+        launches = _launches()
+        want = {"conv3x3": 2 * per_fwd["conv3x3"] * run["final_step"], "fused_mha": 0,
+                "sdf_grid": 0}
+        if run["final_step"] != DATA_STEPS:
+            raise AssertionError(f"apps.train took {run['final_step']} steps")
+        _check_run_launches("dataset-tools training", launches, want)
+        for step, terms in run["logged"]:
+            if not all(np.isfinite(v) for v in terms.values()) or terms["skipped_nonfinite"]:
+                raise AssertionError(f"dataset-tools training step {step}: terms {terms}")
+        result["train"] = dict(steps=run["final_step"], launches=launches,
+                               last=run["logged"][-1][1])
+        print(f"[data] (e) apps.train --data (b)'s split, Config() at batch {DATA_BATCH}, "
+              f"{DATA_STEPS} steps: launches {launches} ({2 * per_fwd['conv3x3']} B2 a step, "
+              f"all on wgmma, no B1); every term finite (total "
+              f"{run['logged'][-1][1]['total']:.4f} at step {run['logged'][-1][0]})", flush=True)
+
+        # (f) evaluation of the packed split
+        forwards = [0]
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            lambda mod, args: forwards.__setitem__(0, forwards[0] + isinstance(mod, HandNet)))
+        for counter in _counters():
+            counter.reset()
+        try:
+            summary = eval_interhand.main(["--cfg", yaml, "--data", packed[DEVICE], "--split",
+                                           split, "--bs", str(DATA_BATCH), "--device", DEVICE,
+                                           "--json"])
+        finally:
+            hook.remove()
+        launches = _launches()
+        want = {"conv3x3": per_fwd["conv3x3"] * forwards[0],
+                "fused_mha": per_fwd["fused_mha"] * forwards[0], "sdf_grid": 0}
+        if forwards[0] != DATA_FRAMES // DATA_BATCH:
+            raise AssertionError(f"apps.eval_interhand ran {forwards[0]} forwards")
+        _check_run_launches("dataset-tools eval", launches, want,
+                            must_launch=("conv3x3", "fused_mha"))
+        metrics = {k: v for k, v in summary.items() if k.endswith("_mm") and not
+                   k.startswith("cdev")}
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"eval summary not finite: {metrics}")
+        result["eval"] = dict(forwards=forwards[0], launches=launches, metrics=metrics)
+        print(f"[data] (f) apps.eval_interhand --data (b)'s split --bs {DATA_BATCH}: "
+              f"{forwards[0]} forwards, launches {launches} ({per_fwd['conv3x3']} B2, all on "
+              f"wgmma, and {per_fwd['fused_mha']} B1 a forward); mpjpe "
+              f"{summary['mpjpe_mm']:.2f} mm, every metric finite", flush=True)
+        del card, cpu, native
     torch.cuda.empty_cache()
     return result
 
@@ -3189,6 +3492,7 @@ def run(json_path: str | None, profile: bool) -> int:
     gan = gan_phase(assets, gpu_line)
     ddp = ddp_phase(cfg, assets, gpu_line, profile)
     world2 = world2_phase(cfg, assets)
+    data_tools = dataset_tools_phase(cfg, assets, gpu_line)
     per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
     b3_ms = synth["per_sample"] * on_path[0]["ms"]
     print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
@@ -3253,6 +3557,7 @@ def run(json_path: str | None, profile: bool) -> int:
                        "hrnet_conv_backward": hrnet_bwd, "hrnet_path": hrnet,
                        "variants": variants, "interpoint_rows": lib_rows,
                        "library": library, "gan": gan, "ddp": ddp, "world2": world2,
+                       "dataset_tools": data_tools,
                        "kernels": kernels}, f, indent=1,
                       default=float)
     print(gpu_line)

@@ -9,6 +9,10 @@ stale library. A library is built at first use
 (`load`), or ahead of time for several sources at once (`build`: one nvcc
 per source, all started together). Nothing is compiled when a module is
 imported.
+
+The host sources (`csrc/<name>.cpp`: the image codec, the packed-dataset
+reader) build the same way with the C++ compiler `HOST_CXX` and
+`HOST_FLAGS` (`load_host`); a failed build raises, as nvcc's does.
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ SOURCE_FLAGS = {"sdf": ("-fmad=false",)}
 def nvcc_flags(name: str) -> tuple:
     """Every nvcc flag of `csrc/<name>.cu` (shared and per-source)."""
     return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+HOST_CXX = "g++"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", "-ffp-contract=off")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -105,6 +112,41 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
+        return lib
+
+
+def host_library_path(name: str) -> Path:
+    h = hashlib.sha1((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join((HOST_CXX,) + HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def load_host(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cpp`, built with `HOST_CXX` on
+    first use. `signatures` maps each C function to (restype, argtypes).
+    Raises RuntimeError if the compiler is missing or the build fails."""
+    key = f"host:{name}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            path = host_library_path(name)
+            if not path.exists():
+                path.parent.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+                cmd = [HOST_CXX, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+                try:
+                    proc = subprocess.run(cmd, capture_output=True, text=True)
+                except OSError as e:
+                    raise RuntimeError(f"{HOST_CXX} failed to start for {name}.cpp: {e}") from e
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{HOST_CXX} failed for {name}.cpp:\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, path)  # atomic: a reader never sees half a file
+            lib = ctypes.CDLL(str(path))
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[key] = lib
         return lib
 
 

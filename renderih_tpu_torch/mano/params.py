@@ -1,8 +1,9 @@
 """MANO model parameters as torch tensors: loading and synthetic fixtures.
 
 Counterpart of `renderih_tpu/mano/params.py`. The official MANO pickles
-are not shipped; users convert them once to an npz (the JAX package's
-`convert_mano_pkl` writes the same layout) and everything reads the npz.
+are not shipped; users convert them once to an npz (`convert_mano_pkl`,
+or `python -m renderih_tpu_torch.tools.convert_assets`) and everything
+reads the npz.
 `make_synthetic_mano` builds a deterministic random hand with the exact
 MANO shapes (778 verts, 16-joint tree, 45-dim PCA pose space) from numpy,
 bit-identical to the JAX package's fixture for the same seed.
@@ -10,6 +11,7 @@ bit-identical to the JAX package's fixture for the same seed.
 
 from __future__ import annotations
 
+import pickle
 from typing import NamedTuple
 
 import numpy as np
@@ -82,6 +84,40 @@ def fix_left_shapedirs(left: ManoModel, right: ManoModel) -> ManoModel:
     fixed = left.shapedirs.clone()
     fixed[:, 0, :] *= -1.0
     return left._replace(shapedirs=fixed)
+
+
+def convert_mano_pkl(pkl_path: str, npz_path: str) -> None:
+    """One-time conversion of an official MANO pickle to a plain npz.
+
+    Unwraps the chumpy `shapedirs` (reference `models/manolayer.py:7-17`;
+    unpickling a real MANO file needs the `chumpy` package), densifies the
+    scipy-sparse `J_regressor`, and takes `is_right` from the file name.
+    """
+    with open(pkl_path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+
+    shapedirs = data["shapedirs"]
+    if not isinstance(shapedirs, np.ndarray):
+        shapedirs = np.asarray(shapedirs.r if hasattr(shapedirs, "r") else shapedirs)
+
+    j_reg = data["J_regressor"]
+    if hasattr(j_reg, "todense"):
+        j_reg = np.asarray(j_reg.todense())
+
+    np.savez(
+        npz_path,
+        v_template=np.asarray(data["v_template"], np.float32),
+        shapedirs=np.asarray(shapedirs, np.float32),
+        posedirs=np.asarray(data["posedirs"], np.float32),
+        J_regressor=np.asarray(j_reg, np.float32),
+        weights=np.asarray(data["weights"], np.float32),
+        hands_components=np.asarray(data["hands_components"], np.float32),
+        hands_mean=np.asarray(data["hands_mean"], np.float32),
+        faces=np.asarray(data["f"], np.int32),
+        kintree_parents=np.asarray(
+            [-1] + [int(data["kintree_table"][0, i]) for i in range(1, 16)], np.int32),
+        is_right=np.asarray("RIGHT" in pkl_path.upper(), np.bool_),
+    )
 
 
 def load_mano_npz(npz_path: str, is_right: bool | None = None) -> ManoModel:

@@ -5,7 +5,8 @@ Each random function is split into its draws (from an explicit
 `torch.Generator`, on the generator's device) and a deterministic
 transform of those draws, so that the transform can be held against the
 JAX package on the same numbers. The image-corpus sampler
-(`BackgroundCorpus`) waits: it reads images with cv2.
+(`BackgroundCorpus`) is not ported yet; the cv2-free image reader it
+needs is `data/image_io.py:imread_rgb`.
 """
 
 from __future__ import annotations

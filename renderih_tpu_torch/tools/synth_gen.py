@@ -197,7 +197,7 @@ def _make_refine(assets, opt_iters: int, device: torch.device, prior_kind: str =
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.backgrounds:
-        raise NotImplementedError(f"--backgrounds (BackgroundCorpus, cv2) {_WAITS}")
+        raise NotImplementedError(f"--backgrounds (BackgroundCorpus) {_WAITS}")
     if args.renderer == "pathtrace":
         raise NotImplementedError(f"--renderer pathtrace (render/pathtrace.py) {_WAITS}")
 

@@ -17,7 +17,7 @@ from renderih_tpu_torch.serve import InferenceEngine, resolve_device
 from renderih_tpu_torch.tools import synth_gen
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "renderih_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "renderih_tpu", "cv2", "PIL"}
 
 
 def _port_files():
@@ -50,7 +50,14 @@ def test_importing_the_port_loads_no_jax():
             "renderih_tpu_torch.apps.train, renderih_tpu_torch.train.trainer, "
             "renderih_tpu_torch.eval.evaluator, renderih_tpu_torch.apps.eval_interhand, "
             "renderih_tpu_torch.serve_http, renderih_tpu_torch.losses.mano_loss, "
-            "renderih_tpu_torch.apps.eval_singlehand, renderih_tpu_torch.apps.eval_tzionas; "
+            "renderih_tpu_torch.apps.eval_singlehand, renderih_tpu_torch.apps.eval_tzionas, "
+            "renderih_tpu_torch.data.image_io, renderih_tpu_torch.data.native_reader, "
+            "renderih_tpu_torch.mano.ik, renderih_tpu_torch.tools.pack_data, "
+            "renderih_tpu_torch.tools.convert_assets, "
+            "renderih_tpu_torch.tools.dataset_gen.interhand_gen, "
+            "renderih_tpu_torch.tools.dataset_gen.handdict_gen, "
+            "renderih_tpu_torch.tools.dataset_gen.tzionas_gen, "
+            "renderih_tpu_torch.tools.dataset_gen.other_datasets_gen; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
