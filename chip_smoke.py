@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (`renderih_tpu_torch/`) on one NVIDIA H100.
 
     python3 chip_smoke.py [--json PATH] [--profile]
+    python3 chip_smoke.py --bf16_ab 600
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit (`nvcc`). Phases; any failure exits non-zero and prints no result
@@ -298,7 +299,53 @@ line:
    `wgmma`, no B1, every term finite; (f) `apps.eval_interhand --data` the
    same split at `--bs 32`: 13 B2 (all `wgmma`) and 24 B1 launches a
    forward, the summary finite.
-23. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+23. The background corpus and synthetic data (`data/image_io.py`,
+   `render/backgrounds.py:BackgroundCorpus`): (a) `resize_area_u8` on the
+   committed INTER_AREA fixtures of `tests/data/torch_codec/` (the integer
+   factor, the area tables, upscaling) and `imread_rgb` on its BMPs (8-bit
+   palette, 24-bit, 32-bit top-down), equal bit for bit to the stored cv2
+   results; (b) `imwrite`'s JPEG of each stored source of `jpeg_encode.npz`
+   decodes as cv2's stored file does, bit for bit (the files equal byte for
+   byte are counted); (c) a corpus of `CORPUS_IMAGES` images (JPEG and PNG
+   written here by `imwrite`, 120-720 px a side, and the BMP fixtures) plus
+   one unreadable file, skipped: the stack on the card equal to the CPU's,
+   a sample on the same draws equal, the load rate (images/s, MB/s of
+   files) and the JPEG encode rate; (d) `synth_gen --backgrounds DIR --n 32
+   --batch 32 --optimize`: exactly 128 B3 launches a refined sample, no B1
+   or B2, the split finite; refined samples/s.
+24. Perspective, densepose and mask IoU: `render_rgb_perspective` (with
+   Blinn-Phong, AO and soft shadow), `render_mask_perspective` and
+   `render_densepose` at batch `PERSP_BATCH`, 256², on the card, their
+   first `PERSP_CPU` scenes against the CPU at
+   `tests/test_torch_render.py:_compare_images`' bar (masks agree on
+   >= 99.9% of pixels, within 1e-4 where they agree). Then `MASKIOU_N`
+   handdicts with `camera` (JPEGs written by `imwrite`) packed by
+   `tools.pack_data` (the split carries `camera_in`), `tools.compute_maskiou`
+   on the card and the CPU (pinhole, 64²): each IoU within 2/64²; then
+   `apps.eval_interhand --iou` on the card's vector at `--bs 32`: 13 B2
+   (all `wgmma`) and 24 B1 launches a forward, the bucketed metrics finite.
+25. The demo: `apps.demo` on `Config()` with seed-0 weights on
+   `DEMO_IMAGES` non-square images (JPEG and PNG) with `--other_view 60`:
+   every output decodes to 256², 13 B2 (all `wgmma`) and 24 B1 launches a
+   forward, one forward an image; images/s (model, overlay, novel view,
+   files). The same on `DEMO_CPU_IMAGES` of them (a JPEG and a PNG) with
+   `--device cpu`: the card's outputs, decoded, within 1 grey level of the
+   CPU's on >= 99% of their pixels (pooled; each output's share printed: a
+   JPEG spreads a pixel that bf16 rounding moves over its 8x8 block).
+26. The path tracer: `synth_gen --renderer pathtrace --spp 8 --bounces 2
+   --n 8` at 256² on the card: images/s, the peak memory above what was
+   allocated before, the hit mask against the rasteriser's on the same
+   inputs on >= 99.9% of pixels, and one intersection pass of the batch's
+   primary rays timed. Then card against CPU on the same draws
+   (`PT_PARITY`: 2 scenes at 64², spp 2, 2 bounces) at the CPU test's bar:
+   hit masks equal, RGB within 1e-4 on >= 99.5% of pixels.
+27. The bf16 decoder: `InferenceEngine(decoder_bf16=True)` against an
+   engine on `decoder_f32=False`, 32 images: equal bit for bit, the
+   caller's config untouched, 13 B2 and 24 B1 launches a forward. Then
+   `tools.validate_bf16_decoder` at `BF16_STEPS` steps, batch 64, on the
+   card: exactly 26 B2 a training step (all `wgmma`, no B1) and 13 B2 and
+   24 B1 in each of its 4 eval forwards; its JSON line.
+28. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
    batch 256 in the flagship's dtypes, B2 per training step at batch 64
    and per recipe training step at batch 128, B3 per refined sample; B1
    per ViT-B forward in its dtypes, B2 per HRNet-W32 forward and training
@@ -307,8 +354,16 @@ line:
    world-1 run at batch 64: its launches are the child's count over its
    steps, which `apps.train` sets to 0 before the first, and its times
    are phase 7's bf16 rows, the same shapes at the same batch, as the
-   `train` row's are), and as the last line
+   `train` row's are; B3 per refined sample of phase 23's corpus run and
+   B2 per training step of phase 27's, their times phase 4's and phase
+   7's rows), and as the last line
    `{"ok": true, "device": {...}}`.
+
+With `--bf16_ab STEPS` the script runs only the trained bf16-decoder A/B
+(`validate_bf16_decoder` at STEPS steps, batch 64, 256 samples) and the
+bucket gap on its trained weights against seed-0 weights (images 0-7
+served at bucket 1 and inside a bucket of 128; each output's max|Δ| over
+its largest value, and the vertices' in mm).
 
 All f32 comparisons run with TF32 off in cuDNN and cuBLAS
 (`torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -374,6 +429,13 @@ DATA_STEPS, DATA_BATCH = 3, 32  # phase 22: apps.train and apps.eval_interhand o
 DATA_LABEL_RTOL = {"v2d": 1e-4, "j2d": 1e-4}  # else 1e-5, of each label's largest |value|
 DATA_IK_MEAN_RESIDUAL = 1.5e-3  # tests/test_ik.py's bar (template scale, metres)
 WORLD2_BATCH = 4  # phase 21: a rank's batch of the two ranks on one card (global 8)
+CORPUS_IMAGES = 64  # phase 23: background images (JPEG, PNG, BMP) of the corpus
+PERSP_BATCH, PERSP_CPU = 32, 2  # phase 24: scenes rendered on the card, and on the CPU
+MASKIOU_N = 64  # phase 24: frames of the packed split with camera_in
+DEMO_IMAGES, DEMO_CPU_IMAGES = 8, 2  # phase 25: images on the card, and on the CPU
+PT_N, PT_SPP, PT_BOUNCES = 8, 8, 2  # phase 26: synth_gen --renderer pathtrace at 256²
+PT_PARITY = (64, 2, 2, 2)  # phase 26 card vs CPU: size, scenes, spp, bounces
+BF16_STEPS = 100  # phase 27: validate_bf16_decoder's training steps at batch 64
 
 
 def _gpu_line() -> str:
@@ -1635,25 +1697,6 @@ def eval_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     return result
 
 
-def _png_bytes(rgb) -> bytes:
-    """An 8-bit RGB PNG of `rgb` (H, W, 3): filter 0 on every row, zlib
-    level 1."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1).tobytes()
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
-
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
-
-
 def _official_tree(root: str, n: int, seed: int) -> str:
     """A fake official InterHand2.6M release (`tests/test_interhand_gen.py`'s
     layout) of `n` interacting frames at 480x640, noise PNGs, with the
@@ -1663,6 +1706,7 @@ def _official_tree(root: str, n: int, seed: int) -> str:
 
     import numpy as np
 
+    from renderih_tpu_torch.data.image_io import png_bytes
     from renderih_tpu_torch.mano.params import MANO_PARENTS, make_synthetic_mano
 
     split, rng = "train", np.random.default_rng(seed)
@@ -1675,7 +1719,7 @@ def _official_tree(root: str, n: int, seed: int) -> str:
         path = os.path.join(root, "images", split, fname)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:
-            f.write(_png_bytes(rng.integers(0, 255, (480, 640, 3), np.uint8)))
+            f.write(png_bytes(rng.integers(0, 255, (480, 640, 3), np.uint8)))
         images.append({"id": i, "file_name": fname, "width": 640, "height": 480,
                        "capture": cap, "camera": 400002, "frame_idx": frame})
         annotations.append({"id": 10 * i, "image_id": i, "hand_type": "interacting"})
@@ -1912,6 +1956,648 @@ def dataset_tools_phase(cfg, assets, gpu_line: str) -> dict:
         del card, cpu, native
     torch.cuda.empty_cache()
     return result
+
+
+def _smooth_noise(rng, h: int, w: int):
+    """A smooth colour pattern with a little noise, uint8 (h, w, 3): a
+    stand-in for a photograph's compressibility."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w]
+    f = rng.uniform(5.0, 40.0, 3)
+    img = np.stack([128 + 90 * np.sin(x / f[k] + k) * np.cos(y / f[(k + 1) % 3]) for k in range(3)],
+                   -1) + rng.normal(0.0, 8.0, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def corpus_phase(gpu_line: str) -> dict:
+    """Background corpus and synthetic data on the card machine (see the
+    module docstring, phase 23)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.data.image_io import encode_jpeg, imread_rgb, imwrite, resize_area_u8
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.render.backgrounds import BackgroundCorpus
+    from renderih_tpu_torch.tools import synth_gen
+
+    codec = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                         "torch_codec")
+    # (a) cv2's INTER_AREA in its three regimes and cv2's BMP decodes
+    areas = sorted(glob.glob(os.path.join(codec, "area_*.npz")))
+    bmps = sorted(glob.glob(os.path.join(codec, "*.bmp")))
+    if len(areas) < 4 or len(bmps) < 3:
+        raise AssertionError(f"codec fixtures missing: {areas} {bmps}")
+    for path in areas:
+        f = np.load(path)
+        if not np.array_equal(resize_area_u8(f["src"], f["out"].shape[1::-1]), f["out"]):
+            raise AssertionError(f"resize_area_u8 differs from cv2's INTER_AREA ({path})")
+    for path in bmps:
+        if not np.array_equal(imread_rgb(path), np.load(path[:-4] + ".npz")["rgb"]):
+            raise AssertionError(f"imread_rgb({path}) differs from cv2's decode")
+    print(f"[corpus] (a) resize_area_u8 on {len(areas)} stored cv2 INTER_AREA results (integer "
+          f"factor, area tables, upscaling) and imread_rgb on {len(bmps)} BMPs (8-bit palette, "
+          f"24-bit, 32-bit top-down): bit for bit cv2's", flush=True)
+
+    result = {}
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        # (b) the JPEG encoder against cv2's stored files
+        enc = np.load(os.path.join(codec, "jpeg_encode.npz"))
+        n_enc = len([k for k in enc.files if k.startswith("src_")])
+        same_bytes = 0
+        for i in range(n_enc):
+            got, want = encode_jpeg(enc[f"src_{i}"]), enc[f"jpg_{i}"].tobytes()
+            for name, data in (("port.jpg", got), ("cv2.jpg", want)):
+                with open(os.path.join(root, name), "wb") as f:
+                    f.write(data)
+            if not np.array_equal(imread_rgb(os.path.join(root, "port.jpg")),
+                                  imread_rgb(os.path.join(root, "cv2.jpg"))):
+                raise AssertionError(f"imwrite's JPEG of source {i} decodes otherwise than "
+                                     "cv2's file")
+            same_bytes += got == want
+        print(f"[corpus] (b) imwrite's JPEG of {n_enc} stored sources decodes bit for bit as "
+              f"cv2's file of each; {same_bytes} of {n_enc} files equal byte for byte",
+              flush=True)
+
+        # (c) a corpus of CORPUS_IMAGES images written here, BMPs and one
+        # unreadable file among them
+        rng = np.random.default_rng(23)
+        corpus_dir = os.path.join(root, "backgrounds")
+        os.makedirs(corpus_dir)
+        n_written = CORPUS_IMAGES - len(bmps)
+        enc_s = enc_px = 0.0
+        for i in range(n_written):
+            h, w = (int(v) for v in rng.integers(120, 721, 2))
+            img = _smooth_noise(rng, h, w)
+            path = os.path.join(corpus_dir, f"bg{i:03d}.{'jpg' if i % 2 == 0 else 'png'}")
+            t0 = time.perf_counter()
+            imwrite(path, img)
+            if i % 2 == 0:
+                enc_s += time.perf_counter() - t0
+                enc_px += h * w
+        for path in bmps:
+            shutil.copy(path, corpus_dir)
+        with open(os.path.join(corpus_dir, "broken.jpg"), "w") as f:
+            f.write("not an image")
+        n_bytes = sum(os.path.getsize(os.path.join(corpus_dir, f)) for f in os.listdir(corpus_dir))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        corpus = BackgroundCorpus(corpus_dir, 256, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cpu = BackgroundCorpus(corpus_dir, 256, device="cpu")
+        if corpus.images.shape != (CORPUS_IMAGES, 256, 256, 3) or not torch.equal(
+                corpus.images.cpu(), cpu.images):
+            raise AssertionError(f"corpus on the card {tuple(corpus.images.shape)} differs from "
+                                 "the CPU's")
+        gen = torch.Generator().manual_seed(3)
+        idx = torch.randint(0, CORPUS_IMAGES, (SYNTH_N,), generator=gen)
+        flip = torch.rand((SYNTH_N,), generator=gen) < 0.5
+        gain = torch.rand((SYNTH_N, 1, 1, 1), generator=gen) * 0.5 + 0.7
+        dev = torch.device(DEVICE)
+        if not torch.equal(corpus.transform(idx.to(dev), flip.to(dev), gain.to(dev)).cpu(),
+                           cpu.transform(idx, flip, gain)):
+            raise AssertionError("corpus sampling on the card differs from the CPU's")
+        result["corpus"] = dict(images=CORPUS_IMAGES, files_mb=n_bytes / 1e6, load_s=load_s,
+                                images_per_s=CORPUS_IMAGES / load_s,
+                                mb_per_s=n_bytes / 1e6 / load_s,
+                                jpeg_encode_mpx_per_s=enc_px / enc_s / 1e6)
+        print(f"[corpus] (c) BackgroundCorpus of {CORPUS_IMAGES} images ({n_written} written "
+              f"here by imwrite, JPEG and PNG, 120-720 px a side; the {len(bmps)} BMPs) and one "
+              f"unreadable file, skipped: loaded in {load_s:.3f} s, "
+              f"{CORPUS_IMAGES / load_s:.1f} images/s, {n_bytes / 1e6 / load_s:.1f} MB/s of "
+              f"files (decode, centre crop, INTER_AREA to 256², upload; one host thread); the "
+              f"stack and a sample on the card equal the CPU's; JPEG encode "
+              f"{enc_px / enc_s / 1e6:.1f} Mpx/s (one host thread) on {gpu_line}", flush=True)
+
+        # (d) synth_gen over the corpus, with the refinement
+        per_sample = 4 * (2 * (SYNTH_ITERS // 4) + 2)
+        out = os.path.join(root, "synth")
+        for counter in _counters():
+            counter.reset()
+        stats = synth_gen.main(["--out", out, "--n", str(SYNTH_N), "--batch", str(SYNTH_N),
+                                "--seed", "0", "--optimize", "--opt_iters", str(SYNTH_ITERS),
+                                "--backgrounds", corpus_dir, "--device", DEVICE])
+        launches = _launches()
+        want = {"conv3x3": 0, "fused_mha": 0, "sdf_grid": SYNTH_N * per_sample}
+        if launches != want:
+            raise AssertionError(f"synth_gen --backgrounds: launches {launches} != {want}")
+        images = np.memmap(os.path.join(out, "train_images.u8"), dtype=np.uint8, mode="r")
+        labels = dict(np.load(os.path.join(out, "train_labels.npz")))
+        if images.size != SYNTH_N * 256 * 256 * 3 or images.std() < 1 or not all(
+                np.isfinite(v).all() for v in labels.values()):
+            raise AssertionError("synth_gen --backgrounds wrote a blank or non-finite split")
+        del images
+        result["synth"] = dict(launches=launches, per_sample=per_sample,
+                               refined_samples_per_s=stats["refined_samples_per_s"],
+                               images_per_s=stats["images_per_s"], seconds=stats["seconds"])
+        print(f"[corpus] (d) synth_gen --backgrounds ({CORPUS_IMAGES} images) --n {SYNTH_N} "
+              f"--batch {SYNTH_N} --optimize: launches {launches} ({per_sample} B3 a refined "
+              f"sample); {stats['refined_samples_per_s']:.3f} refined samples/s, "
+              f"{stats['images_per_s']:.3f} images/s end to end ({stats['seconds']:.2f} s) on "
+              f"{gpu_line}", flush=True)
+        del corpus, cpu
+    torch.cuda.empty_cache()
+    return result
+
+
+def _compare_renders(label: str, got, mask, want, want_mask) -> dict:
+    """`tests/test_torch_render.py:_compare_images`' bar: the masks agree on
+    >= 99.9% of pixels, the colours (attributes) within 1e-4 where they do,
+    the coverage between 2% and 90%."""
+    import numpy as np
+
+    got, mask, want, want_mask = (np.asarray(a) for a in (got, mask, want, want_mask))
+    agree = mask == want_mask
+    err = float(np.abs(got[agree] - want[agree]).max())
+    if agree.mean() < 0.999 or err > 1e-4 or not 0.02 < want_mask.mean() < 0.9:
+        raise AssertionError(f"{label}: masks agree on {agree.mean():.5f}, max|Δ| {err:.3e}, "
+                             f"coverage {want_mask.mean():.3f}")
+    return dict(mask_agree=float(agree.mean()), max_abs_err=err, coverage=float(want_mask.mean()))
+
+
+def _posed_pair(assets, n: int, seed: int, depth: float):
+    """n posed synthetic two-hand scenes from numpy draws, the hands side by
+    side at `depth` (metres, camera space)."""
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.mano.layer import mano_forward
+    from renderih_tpu_torch.ops.rotation import rodrigues
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for mano, dx in ((assets.left.mano, -0.06), (assets.right.mano, 0.06)):
+        root = torch.from_numpy(rng.normal(0, 0.6, (n, 3)).astype(np.float32))
+        pose = torch.from_numpy(rng.normal(0, 0.4, (n, 45)).astype(np.float32))
+        with torch.no_grad():
+            v, j = mano_forward(mano, rodrigues(root), pose, torch.zeros(n, 10),
+                                center_idx=None, use_pca=False)
+        shift = torch.tensor([dx, 0.0, depth]) + torch.from_numpy(
+            rng.normal(0, 0.02, (n, 1, 3)).astype(np.float32))
+        out += [v + shift, j + shift]
+    return out, rng
+
+
+def perspective_phase(cfg, assets, gpu_line: str) -> dict:
+    """Perspective and densepose renders, and the mask-IoU tool (see the
+    module docstring, phase 24)."""
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import eval_interhand
+    from renderih_tpu_torch.data.image_io import imwrite
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.models import HandNet
+    from renderih_tpu_torch.ops.projection import pinhole_project
+    from renderih_tpu_torch.render.renderer import TwoHandRenderer
+    from renderih_tpu_torch.tools import compute_maskiou, pack_data
+
+    dev, n, k = torch.device(DEVICE), PERSP_BATCH, PERSP_CPU
+    (vl, jl, vr, jr), rng = _posed_pair(assets, n, seed=24, depth=0.45)
+    K = np.zeros((n, 3, 3), np.float32)
+    f = rng.uniform(150.0, 250.0, n)
+    K[:, 0, 0], K[:, 1, 1], K[:, 2, 2] = f, f * rng.uniform(0.95, 1.05, n), 1.0
+    K[:, :2, 2] = 128.0 + rng.uniform(-12, 12, (n, 2))
+    K = torch.from_numpy(K)
+    light = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    light[:, 2] = -light[:, 2].abs() - 0.5
+    light = light / light.norm(dim=1, keepdim=True)
+    lit = dict(albedo=torch.from_numpy(rng.uniform(0.2, 1.0, (n, 2 * 778, 3)).astype(np.float32)),
+               light_dir=light,
+               light_color=torch.from_numpy(rng.uniform(0.5, 1.1, (n, 3)).astype(np.float32)),
+               ambient=torch.from_numpy(rng.uniform(0.15, 0.45, (n, 3)).astype(np.float32)))
+    cams = ({"left": torch.full((n,), 1.6), "right": torch.full((n,), 1.6)},
+            {"left": torch.from_numpy(rng.uniform(-0.35, -0.1, (n, 2)).astype(np.float32)),
+             "right": torch.from_numpy(rng.uniform(0.05, 0.3, (n, 2)).astype(np.float32))})
+    dense = torch.from_numpy(rng.uniform(0, 1, (2 * 778, 3)).astype(np.float32))
+    orth_l, orth_r = vl - torch.tensor([0, 0, 0.45]), vr - torch.tensor([0, 0, 0.45])
+
+    def render(device, sl):
+        to = lambda t: t[sl].to(device)
+        r = TwoHandRenderer(assets, 256, device=device)
+        with torch.no_grad():
+            rgb, mask = r.render_rgb_perspective(to(K), to(vl), to(vr),
+                                                 **{a: to(b) for a, b in lit.items()},
+                                                 specular=0.15, ao=0.5, soft_shadow=0.5)
+            mask_only = r.render_mask_perspective(to(K), to(vl), to(vr))
+            attr, dmask = r.render_densepose(*({h: to(v) for h, v in c.items()} for c in cams),
+                                             to(orth_l), to(orth_r), dense.to(device))
+        return [t.cpu() for t in (rgb, mask, mask_only, attr, dmask)]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = render(dev, slice(0, n))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = render(torch.device("cpu"), slice(0, k))
+    result = {"rgb": _compare_renders("render_rgb_perspective", card[0][:k], card[1][:k],
+                                      cpu[0], cpu[1]),
+              "densepose": _compare_renders("render_densepose", card[3][:k], card[4][:k],
+                                            cpu[3], cpu[4])}
+    if not torch.equal(card[1], card[2]) or (card[2][:k] == cpu[2]).float().mean() < 0.999:
+        raise AssertionError("render_mask_perspective differs from render_rgb_perspective's mask "
+                             "or from the CPU's")
+    result["render_s"] = card_s
+    print(f"[persp] render_rgb_perspective (Blinn-Phong, AO, soft shadow), "
+          f"render_mask_perspective and render_densepose at batch {n}, 256²: {card_s:.3f} s on "
+          f"the card; its first {k} scenes against the CPU: masks agree on "
+          f"{result['rgb']['mask_agree']:.5f} / {result['densepose']['mask_agree']:.5f}, max|Δ| "
+          f"{result['rgb']['max_abs_err']:.2e} / {result['densepose']['max_abs_err']:.2e} (bar: "
+          f">= 0.999, 1e-4)", flush=True)
+
+    # a packed split with per-frame intrinsics, from handdicts with `camera`
+    m = MASKIOU_N
+    (vl, jl, vr, jr), rng = _posed_pair(assets, m, seed=25, depth=0.5)
+    pull = torch.from_numpy(rng.uniform(0.0, 0.1, (m, 1, 1)).astype(np.float32))
+    vr, jr = vr - pull * torch.tensor([1.0, 0, 0]), jr - pull * torch.tensor([1.0, 0, 0])
+    Km = np.zeros((m, 3, 3), np.float32)
+    Km[:, 0, 0] = Km[:, 1, 1] = rng.uniform(180.0, 260.0, m)
+    Km[:, 2, 2], Km[:, :2, 2] = 1.0, 128.0
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        tree, split = os.path.join(root, "ref"), "test"
+        for d in ("img", "anno", "ori_handdict"):
+            os.makedirs(os.path.join(tree, split, d))
+        for i in range(m):
+            imwrite(os.path.join(tree, split, "img", f"{i}.jpg"), _smooth_noise(rng, 256, 256))
+            with open(os.path.join(tree, split, "anno", f"{i}.pkl"), "wb") as fh:
+                pickle.dump({}, fh)
+            hd = {}
+            for hand, v, j in (("left", vl[i], jl[i]), ("right", vr[i], jr[i])):
+                Kt = torch.from_numpy(Km[i])
+                hd[hand] = {"verts3d": v.numpy(), "joints3d": j.numpy(),
+                            "verts2d": pinhole_project(v, Kt)[0].numpy(),
+                            "joints2d": pinhole_project(j, Kt)[0].numpy(), "camera": Km[i]}
+            np.save(os.path.join(tree, split, "ori_handdict", f"{i}.npy"), hd)
+        packed = os.path.join(root, "packed")
+        if pack_data.main(["--data", tree, "--split", split, "--out", packed]) != m:
+            raise AssertionError("pack_data packed the wrong frame count")
+        if "camera_in" not in np.load(os.path.join(packed, f"{split}_labels.npz")).files:
+            raise AssertionError("the packed split carries no camera_in")
+        ious, secs = {}, {}
+        for device in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            ious[device] = compute_maskiou.main(["--data", packed, "--split", split, "--out",
+                                                 os.path.join(root, f"iou_{device}.npy"),
+                                                 "--device", device])
+            secs[device] = time.perf_counter() - t0
+        gap = float(np.abs(ious[DEVICE] - ious["cpu"]).max())
+        differ = int((ious[DEVICE] != ious["cpu"]).sum())
+        if gap > 2 / 64 ** 2 or not 0 <= ious[DEVICE].min() <= ious[DEVICE].max() <= 1:
+            raise AssertionError(f"compute_maskiou card vs CPU: max|Δ| {gap:.3e} "
+                                 f"(bar {2 / 64 ** 2:.3e})")
+        if not (ious[DEVICE].min() < 0.33 and ious[DEVICE].max() >= 0.33):
+            raise AssertionError(f"IoUs {ious[DEVICE].min():.3f}-{ious[DEVICE].max():.3f} do not "
+                                 "spread over the interaction buckets")
+        result["maskiou"] = dict(frames=m, max_abs_err=gap, samples_differing=differ,
+                                 seconds=secs, mean_iou=float(ious[DEVICE].mean()))
+        print(f"[persp] pack_data of {m} handdicts with `camera` (JPEGs by imwrite) -> "
+              f"compute_maskiou (pinhole, 64²): card against CPU max|Δ| {gap:.3e} on {differ} "
+              f"samples (bar {2 / 64 ** 2:.3e}); mean IoU {ious[DEVICE].mean():.3f}; "
+              f"{secs[DEVICE]:.2f} s on the card, {secs['cpu']:.2f} s on the CPU", flush=True)
+
+        per_fwd = per_forward(cfg, assets)
+        forwards = [0]
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            lambda mod, args: forwards.__setitem__(0, forwards[0] + isinstance(mod, HandNet)))
+        for counter in _counters():
+            counter.reset()
+        try:
+            summary = eval_interhand.main(["--data", packed, "--split", split, "--bs", "32",
+                                           "--iou", os.path.join(root, f"iou_{DEVICE}.npy"),
+                                           "--device", DEVICE, "--json"])
+        finally:
+            hook.remove()
+        launches = _launches()
+        want = {"conv3x3": per_fwd["conv3x3"] * forwards[0],
+                "fused_mha": per_fwd["fused_mha"] * forwards[0], "sdf_grid": 0}
+        if forwards[0] != m // 32:
+            raise AssertionError(f"eval_interhand --iou ran {forwards[0]} forwards")
+        _check_run_launches("eval --iou", launches, want, must_launch=("conv3x3", "fused_mha"))
+        buckets = {k: v for k, v in summary.items() if "_iou" in k}
+        if not buckets or not all(np.isfinite(v) for k, v in buckets.items()
+                                  if not k.startswith("cdev")):
+            raise AssertionError(f"eval --iou buckets: {buckets}")
+        result["eval_iou"] = dict(forwards=forwards[0], launches=launches, buckets=buckets)
+        print(f"[persp] eval_interhand --iou (the card's vector) --bs 32: {forwards[0]} forwards, "
+              f"launches {launches} ({per_fwd['conv3x3']} B2, all on wgmma, and "
+              f"{per_fwd['fused_mha']} B1 a forward); {len(buckets)} bucketed metrics, finite",
+              flush=True)
+    torch.cuda.empty_cache()
+    return result
+
+
+def demo_phase(cfg, assets, gpu_line: str) -> dict:
+    """`apps.demo` on the card and the CPU (see the module docstring, phase
+    25)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import demo
+    from renderih_tpu_torch.data.image_io import imread_rgb, imwrite
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.models import HandNet
+
+    rng = np.random.default_rng(25)
+    sizes = [(480, 640), (640, 480), (300, 500), (405, 720), (256, 200), (720, 540), (150, 151),
+             (333, 222)]
+    per_fwd = per_forward(cfg, assets)
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        src, src_cpu = os.path.join(root, "in"), os.path.join(root, "in_cpu")
+        os.makedirs(src)
+        os.makedirs(src_cpu)
+        names = []
+        for i, (h, w) in enumerate(sizes[:DEMO_IMAGES]):
+            names.append(f"img{i}.{'jpg' if i % 2 == 0 else 'png'}")
+            imwrite(os.path.join(src, names[-1]), _smooth_noise(rng, h, w))
+        for name in names[:DEMO_CPU_IMAGES]:
+            shutil.copy(os.path.join(src, name), src_cpu)
+        forwards = [0]
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            lambda mod, args: forwards.__setitem__(0, forwards[0] + isinstance(mod, HandNet)))
+        for counter in _counters():
+            counter.reset()
+        try:
+            run = demo.main(["--img_path", src, "--save_path", os.path.join(root, "out"),
+                             "--other_view", "60", "--device", DEVICE])
+        finally:
+            hook.remove()
+        launches = _launches()
+        want = {"conv3x3": per_fwd["conv3x3"] * forwards[0],
+                "fused_mha": per_fwd["fused_mha"] * forwards[0], "sdf_grid": 0}
+        if forwards[0] != DEMO_IMAGES or run["images"] != DEMO_IMAGES:
+            raise AssertionError(f"apps.demo ran {forwards[0]} forwards on {run['images']} images")
+        _check_run_launches("demo", launches, want, must_launch=("conv3x3", "fused_mha"))
+        cpu = demo.main(["--img_path", src_cpu, "--save_path", os.path.join(root, "out_cpu"),
+                         "--other_view", "60", "--device", "cpu"])
+        shares, within, total = {}, 0, 0
+        for path in cpu["outputs"]:
+            name = os.path.basename(path)
+            got = imread_rgb(os.path.join(root, "out", name))
+            want_img = imread_rgb(path)
+            if got.shape != (256, 256, 3):
+                raise AssertionError(f"demo output {name}: shape {got.shape}")
+            ok = np.abs(got.astype(np.int16) - want_img).max(-1) <= 1
+            shares[name], within, total = float(ok.mean()), within + ok.sum(), total + ok.size
+        for path in run["outputs"]:
+            if imread_rgb(path).shape != (256, 256, 3):
+                raise AssertionError(f"demo output {path} does not decode to 256²")
+        share = within / total
+        if share < 0.99:
+            raise AssertionError(f"demo card vs CPU: within 1 grey level on {share:.4f} of the "
+                                 f"outputs' pixels (bar 0.99): {shares}")
+        result = dict(images=DEMO_IMAGES, outputs=len(run["outputs"]), seconds=run["seconds"],
+                      images_per_s=DEMO_IMAGES / run["seconds"], launches=launches,
+                      forwards=forwards[0], cpu_within_1=share, cpu_within_1_by_output=shares)
+        print(f"[demo] apps.demo on Config() (seed-0 weights), {DEMO_IMAGES} non-square images "
+              f"(JPEG and PNG) --other_view 60: {len(run['outputs'])} outputs, each decoding to "
+              f"256²; launches {launches} over {forwards[0]} forwards ({per_fwd['conv3x3']} B2, "
+              f"all on wgmma, and {per_fwd['fused_mha']} B1 a forward); "
+              f"{DEMO_IMAGES / run['seconds']:.2f} images/s (model, overlay, novel view, files) "
+              f"on {gpu_line}; against --device cpu on {DEMO_CPU_IMAGES} of them: within 1 grey "
+              f"level on {share:.5f} of the outputs' pixels (bar 0.99; by output {shares})",
+              flush=True)
+    torch.cuda.empty_cache()
+    return result
+
+
+def pathtrace_phase(assets, gpu_line: str) -> dict:
+    """The path tracer through `synth_gen --renderer pathtrace`, and card
+    against CPU on the same draws (see the module docstring, phase 26)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.render import pathtrace as pt
+    from renderih_tpu_torch.render.renderer import TwoHandRenderer
+    from renderih_tpu_torch.tools import synth_gen
+
+    dev = torch.device(DEVICE)
+    captured = []
+
+    class Recording(pt.TwoHandPathTracer):
+        def render(self, *args, **kwargs):
+            out = super().render(*args, **kwargs)
+            captured.append((args[:4], out[1]))
+            return out
+
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        synth_gen.TwoHandPathTracer = Recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        try:
+            stats = synth_gen.main(["--out", os.path.join(root, "pt"), "--n", str(PT_N),
+                                    "--batch", str(PT_N), "--renderer", "pathtrace", "--spp",
+                                    str(PT_SPP), "--bounces", str(PT_BOUNCES), "--device",
+                                    DEVICE])
+        finally:
+            synth_gen.TwoHandPathTracer = pt.TwoHandPathTracer
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        images = np.memmap(os.path.join(root, "pt", "train_images.u8"), dtype=np.uint8, mode="r")
+        if images.std() < 1:
+            raise AssertionError("synth_gen --renderer pathtrace wrote blank images")
+        del images
+    (scale, trans2d, vl, vr), mask = captured[0]
+    with torch.no_grad():
+        raster = TwoHandRenderer(assets, 256, device=dev).render_mask(scale, trans2d, vl, vr)
+    agree = float(((mask > 0.5) == raster).float().mean())
+    if len(captured) != 1 or agree < 0.999 or not 0.01 < float(raster.float().mean()) < 0.9:
+        raise AssertionError(f"path tracer's hit mask against the rasteriser's: {agree:.5f} "
+                             f"(bar 0.999) over {len(captured)} renders")
+
+    # one intersection pass of the batch's primary rays, timed
+    with torch.no_grad():
+        tracer = pt.TwoHandPathTracer(assets, 256, device=dev)
+        scene, _ = tracer.scene(scale, trans2d, vl, vr,
+                                torch.full((PT_N, tracer.num_verts, 3), 0.7, device=dev))
+        xs = torch.arange(256, dtype=torch.float32, device=dev)
+        py, px = torch.meshgrid(xs, xs, indexing="ij")
+        o0 = torch.stack([px.reshape(-1), py.reshape(-1), torch.full_like(px.reshape(-1), -1e4)],
+                         -1).expand(PT_N, -1, -1)
+        d0 = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(PT_N, 256 * 256, 3)
+        chunk = max(256, 8192 // PT_N)
+        pass_ms = _time_ms(lambda: pt.intersect(o0, d0, scene, chunk=chunk), iters=3, warmup=1)
+    passes = 1 + PT_SPP * (1 + 2 * PT_BOUNCES)
+    tests = PT_N * 256 * 256 * tracer.faces.shape[0]
+    result = dict(images=PT_N, seconds=stats["seconds"], images_per_s=stats["images_per_s"],
+                  peak_gb=peak_gb, mask_agree=agree, pass_ms=pass_ms, passes=passes,
+                  ray_triangle_tests_per_s=tests / pass_ms * 1e3)
+    print(f"[pathtrace] synth_gen --renderer pathtrace --spp {PT_SPP} --bounces {PT_BOUNCES} "
+          f"--n {PT_N} at 256²: {stats['images_per_s']:.3f} images/s end to end "
+          f"({stats['seconds']:.2f} s), peak {peak_gb:.2f} GiB on the card above what was "
+          f"allocated before; hit mask against the rasteriser's on {agree:.5f} of pixels (bar "
+          f"0.999); one intersection pass of the {PT_N} scenes' primary rays (chunk {chunk}, "
+          f"{tests / 1e9:.2f}G ray-triangle tests) {pass_ms:.2f} ms, {passes} passes a render, "
+          f"on {gpu_line}", flush=True)
+
+    # card against CPU on the same draws at 64²
+    size, bs, spp, bounces = PT_PARITY
+    (pl, _, pr, _), rng = _posed_pair(assets, bs, seed=26, depth=0.0)
+    inputs = ({"left": torch.full((bs,), 2.0), "right": torch.full((bs,), 2.0)},
+              {"left": torch.from_numpy(rng.uniform(-0.3, -0.1, (bs, 2)).astype(np.float32)),
+               "right": torch.from_numpy(rng.uniform(0.05, 0.25, (bs, 2)).astype(np.float32))},
+              pl, pr, torch.from_numpy(rng.uniform(0.3, 0.9, (bs, 2 * 778, 3)).astype(np.float32)))
+    draws = pt.draw_paths(torch.Generator().manual_seed(27), bs, spp, bounces, size * size)
+    light = torch.from_numpy(rng.normal(size=(bs, 3)).astype(np.float32))
+    light[:, 2] = -light[:, 2].abs() - 0.5
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        to = lambda x: {k: v.to(device) for k, v in x.items()} if isinstance(x, dict) else x.to(device)
+        with torch.no_grad():
+            rgb, m = pt.TwoHandPathTracer(assets, size, device=device).render(
+                *(to(x) for x in inputs), draws=pt.PathDraws(*(to(d) for d in draws)),
+                light_dir=to(light), spp=spp, n_bounces=bounces)
+        outs[device.type] = (rgb.cpu().numpy(), m.cpu().numpy())
+    (rgb_c, m_c), (rgb_h, m_h) = outs["cuda" if dev.type == "cuda" else "cpu"], outs["cpu"]
+    close = float((np.abs(rgb_c - rgb_h).max(-1) <= 1e-4).mean())
+    if not np.array_equal(m_c, m_h) or close < 0.995 or not 0.05 < m_h.mean() < 0.9:
+        raise AssertionError(f"path tracer card vs CPU: masks equal {np.array_equal(m_c, m_h)}, "
+                             f"{close:.4f} of pixels within 1e-4 (bar 0.995)")
+    result.update(parity_within=close, parity_max_abs_err=float(np.abs(rgb_c - rgb_h).max()))
+    print(f"[pathtrace] card against CPU on the same draws, {bs} scenes at {size}², spp {spp}, "
+          f"{bounces} bounces: hit masks equal, {close:.4f} of pixels within 1e-4 (bar 0.995; "
+          f"max|Δ| {result['parity_max_abs_err']:.2e})", flush=True)
+    torch.cuda.empty_cache()
+    return result
+
+
+def bf16_decoder_phase(cfg, assets, gpu_line: str) -> dict:
+    """The bf16-decoder serving knob and its accuracy tool (see the module
+    docstring, phase 27)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.models import HandNet
+    from renderih_tpu_torch.serve import InferenceEngine
+    from renderih_tpu_torch.tools import validate_bf16_decoder
+
+    per_fwd = per_forward(cfg, assets)
+    before = copy.deepcopy(cfg)
+    images = np.random.default_rng(27).integers(0, 256, (32, 256, 256, 3), np.uint8)
+    off = copy.deepcopy(cfg)
+    off.model.decoder_f32 = False
+    outs = {}
+    for name, c, kw in (("knob", cfg, dict(decoder_bf16=True)), ("decoder_f32=False", off, {})):
+        engine = InferenceEngine(c, assets, buckets=(32,), device=DEVICE, **kw)
+        for counter in _counters():
+            counter.reset()
+        outs[name] = engine.predict(images)
+        _check_run_launches(f"bf16 engine ({name})", _launches(),
+                            {"conv3x3": per_fwd["conv3x3"], "fused_mha": per_fwd["fused_mha"],
+                             "sdf_grid": 0}, must_launch=("conv3x3", "fused_mha"))
+        del engine
+    if cfg != before or not cfg.model.decoder_f32:
+        raise AssertionError("InferenceEngine(decoder_bf16=True) changed the caller's config")
+    unequal = [k for k in outs["knob"] if not np.array_equal(outs["knob"][k],
+                                                             outs["decoder_f32=False"][k])]
+    if unequal:
+        raise AssertionError(f"the knob's engine differs from the decoder_f32=False one: {unequal}")
+    print(f"[bf16] InferenceEngine(decoder_bf16=True) on 32 images equals an engine on "
+          f"decoder_f32=False bit for bit ({len(outs['knob'])} outputs); the caller's config "
+          f"untouched; {per_fwd['conv3x3']} B2 and {per_fwd['fused_mha']} B1 a forward",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    forwards = {True: 0, False: 0}  # HandNet forwards in training / eval mode
+
+    def count(mod, args):
+        if isinstance(mod, HandNet):
+            forwards[mod.training] += 1
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(count)
+    for counter in _counters():
+        counter.reset()
+    try:
+        report, _, _ = validate_bf16_decoder.run(cfg, BF16_STEPS, TRAIN_BATCH, 256,
+                                                 torch.device(DEVICE))
+    finally:
+        hook.remove()
+    launches = _launches()
+    train_fwd, eval_fwd = forwards[True], forwards[False]
+    want = {"conv3x3": 2 * per_fwd["conv3x3"] * train_fwd + per_fwd["conv3x3"] * eval_fwd,
+            "fused_mha": per_fwd["fused_mha"] * eval_fwd, "sdf_grid": 0}
+    if train_fwd != BF16_STEPS or eval_fwd != 4:
+        raise AssertionError(f"validate_bf16_decoder: {train_fwd} training and {eval_fwd} eval "
+                             "forwards (expected the steps and 4)")
+    _check_run_launches("validate_bf16_decoder", launches, want,
+                        must_launch=("conv3x3", "fused_mha"))
+    if not all(np.isfinite(v) for v in report.values() if isinstance(v, float)):
+        raise AssertionError(f"validate_bf16_decoder: {report}")
+    print(f"[bf16] validate_bf16_decoder --steps {BF16_STEPS} --bs {TRAIN_BATCH}: launches "
+          f"{launches} ({2 * per_fwd['conv3x3']} B2 a training step, all on wgmma, no B1; "
+          f"{per_fwd['conv3x3']} B2 and {per_fwd['fused_mha']} B1 in each of {eval_fwd} eval "
+          f"forwards) on {gpu_line}", flush=True)
+    print(json.dumps(report), flush=True)
+    torch.cuda.empty_cache()
+    return dict(report=report, launches=launches, train_launches=2 * per_fwd["conv3x3"] * train_fwd)
+
+
+def bf16_ab(steps: int) -> int:
+    """`--bf16_ab`: the trained bf16-decoder A/B at the JAX tool's defaults
+    (`steps` steps at batch 64 on 256 synthetic samples), then the bucket
+    gap of ROADMAP §C on the trained weights: image 0..7 served at bucket 1
+    and inside a bucket of 128, each output's max|Δ| over its largest
+    value, as phase 15 prints it for seed-0 weights, also in mm."""
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.assets import make_synthetic_assets
+    from renderih_tpu_torch.config import Config
+    from renderih_tpu_torch.kernels import _build
+    from renderih_tpu_torch.serve import InferenceEngine
+    from renderih_tpu_torch.tools import validate_bf16_decoder
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no card", file=sys.stderr)
+        return 2
+    _build.build(["conv3x3", "fused_attention"])
+    gpu_line = _gpu_line()
+    print(f"[card] {gpu_line}", flush=True)
+    cfg, assets = Config(), make_synthetic_assets(0)
+    report, state_dict, images = validate_bf16_decoder.run(cfg, steps, TRAIN_BATCH, 256,
+                                                           torch.device(DEVICE))
+    print(json.dumps(report), flush=True)
+    gaps = {}
+    for name, sd in (("trained", state_dict), ("seed-0", None)):
+        engine = InferenceEngine(cfg, assets, state_dict=sd, device=DEVICE)
+        alone = [engine.predict(images[i:i + 1]) for i in range(8)]
+        batch = engine.predict(images[:128])
+        rel = [_rel_gaps({k: v[0] for k, v in a.items()}, {k: v[i] for k, v in batch.items()})
+               for i, a in enumerate(alone)]
+        mm = max(float(np.abs(a[k][0] - batch[k][i]).max()) * 1e3 for i, a in enumerate(alone)
+                 for k in ("verts3d_left", "verts3d_right"))
+        gaps[name] = dict(worst_rel={k: max(r[k] for r in rel) for k in rel[0]}, verts3d_mm=mm)
+        print(f"[bf16-ab] {name} weights: images 0-7 at bucket 1 against inside a bucket of 128: "
+              f"worst output gap {max(gaps[name]['worst_rel'].values()):.4g} of its largest value "
+              f"({gaps[name]['worst_rel']}); verts3d max|Δ| {mm:.4f} mm on {gpu_line}",
+              flush=True)
+        del engine
+        torch.cuda.empty_cache()
+    print(json.dumps({"bf16_ab": report, "bucket_gap": gaps}), flush=True)
+    return 0
 
 
 def _counters():
@@ -3493,6 +4179,11 @@ def run(json_path: str | None, profile: bool) -> int:
     ddp = ddp_phase(cfg, assets, gpu_line, profile)
     world2 = world2_phase(cfg, assets)
     data_tools = dataset_tools_phase(cfg, assets, gpu_line)
+    corpus = corpus_phase(gpu_line)
+    perspective = perspective_phase(cfg, assets, gpu_line)
+    demo = demo_phase(cfg, assets, gpu_line)
+    pathtrace = pathtrace_phase(assets, gpu_line)
+    bf16 = bf16_decoder_phase(cfg, assets, gpu_line)
     per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
     b3_ms = synth["per_sample"] * on_path[0]["ms"]
     print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
@@ -3542,6 +4233,14 @@ def run(json_path: str | None, profile: bool) -> int:
              replaces="renderih_tpu/kernels/sdf_pallas.py:124",
              **dict(_summary(on_path, synth["launches"]["sdf_grid"]),
                     max_abs_err=max(r["max_abs_err"] for r in rows["sdf_grid"]))),
+        dict(name="sdf_grid", path="synth_backgrounds", route="cuda",
+             source=f"{src}/csrc/sdf.cu", replaces="renderih_tpu/kernels/sdf_pallas.py:124",
+             **dict(_summary(on_path, corpus["synth"]["launches"]["sdf_grid"]),
+                    max_abs_err=max(r["max_abs_err"] for r in rows["sdf_grid"]))),
+        dict(name="conv3x3_same", path="bf16_validate_train", route="cuda",
+             source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
+             **_train_summary([r for r in bwd_rows if r["dtype"] == "bfloat16"],
+                              bf16["train_launches"])),
     ]
     if json_path:
         with open(json_path, "w") as f:
@@ -3557,8 +4256,9 @@ def run(json_path: str | None, profile: bool) -> int:
                        "hrnet_conv_backward": hrnet_bwd, "hrnet_path": hrnet,
                        "variants": variants, "interpoint_rows": lib_rows,
                        "library": library, "gan": gan, "ddp": ddp, "world2": world2,
-                       "dataset_tools": data_tools,
-                       "kernels": kernels}, f, indent=1,
+                       "dataset_tools": data_tools, "corpus": corpus,
+                       "perspective": perspective, "demo": demo, "pathtrace": pathtrace,
+                       "bf16_decoder": bf16, "kernels": kernels}, f, indent=1,
                       default=float)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
@@ -3571,6 +4271,9 @@ def run(json_path: str | None, profile: bool) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", help="also write every measurement to this file")
+    parser.add_argument("--bf16_ab", type=int, metavar="STEPS", default=None,
+                        help="only the trained bf16-decoder A/B (validate_bf16_decoder at "
+                             "STEPS steps, batch 64) and the bucket gap on its weights")
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over one flagship "
                              "predict at the largest bucket, one refined sample, "
@@ -3580,6 +4283,8 @@ def main() -> int:
                              "group and in a one-rank group (torch.profiler)")
     args = parser.parse_args()
     try:
+        if args.bf16_ab is not None:
+            return bf16_ab(args.bf16_ab)
         return run(args.json, args.profile)
     except Exception:
         traceback.print_exc()

@@ -822,6 +822,126 @@ int hc_png_unfilter(const uint8_t* data, int64_t height, int64_t rowbytes,
   return 0;
 }
 
+}  // extern "C"
+
+namespace {
+
+// The separable two-tap resampler of cv::resize on 8U (resizeGeneric_ with
+// HResizeLinear and VResizeLinear): 11-bit fixed-point horizontal taps
+// a0/a1 at source column xofs (one tap, x 2048, where `edge`), then the
+// vertical blend of its vector path ((S >> 4) * beta >> 16, summed,
+// (+2) >> 2) of source rows yofs and yofs + 1 (clamped) with b0/b1.
+// INTER_LINEAR and INTER_AREA's upscaling differ only in the tables.
+struct LinearTables {
+  std::vector<int> xofs, a0, a1, yofs, b0, b1;
+  std::vector<char> edge;
+};
+
+void resize_linear_core(const uint8_t* src, int sh, int sw, int cn, uint8_t* dst,
+                        int dh, int dw, const LinearTables& t) {
+  std::vector<int> hrow0((size_t)dw * cn), hrow1((size_t)dw * cn);
+  auto hpass = [&](int sy, int* out) {
+    sy = sy < 0 ? 0 : (sy >= sh ? sh - 1 : sy);
+    const uint8_t* r = src + (size_t)sy * sw * cn;
+    for (int x = 0; x < dw; ++x) {
+      const uint8_t* p = r + (size_t)t.xofs[x] * cn;
+      for (int k = 0; k < cn; ++k)
+        out[x * cn + k] = t.edge[x] ? p[k] * 2048 : p[k] * t.a0[x] + p[k + cn] * t.a1[x];
+    }
+  };
+  auto sat16 = [](int v) { return v < -32768 ? -32768 : (v > 32767 ? 32767 : v); };
+  for (int y = 0; y < dh; ++y) {
+    hpass(t.yofs[y], hrow0.data());
+    hpass(t.yofs[y] + 1, hrow1.data());
+    uint8_t* o = dst + (size_t)y * dw * cn;
+    for (int i = 0; i < dw * cn; ++i) {
+      int s0 = sat16(hrow0[i] >> 4), s1 = sat16(hrow1[i] >> 4);
+      int m = sat16(((s0 * t.b0[y]) >> 16) + ((s1 * t.b1[y]) >> 16));
+      o[i] = clamp255((m + 2) >> 2);
+    }
+  }
+}
+
+// cv::resize's "fast" INTER_AREA for integer factors kx, ky (resizeAreaFast):
+// the k x k sum; 2 x 2 is its SIMD path's (sum + 2) >> 2, any other factor
+// the scalar sum * (1.f / area) rounded half to even.
+void resize_area_fast(const uint8_t* src, int sw, int cn, uint8_t* dst, int dh, int dw,
+                      int kx, int ky) {
+  const int area = kx * ky;
+  const float scale = 1.f / (float)area;
+  for (int y = 0; y < dh; ++y) {
+    uint8_t* o = dst + (size_t)y * dw * cn;
+    for (int x = 0; x < dw; ++x)
+      for (int k = 0; k < cn; ++k) {
+        int sum = 0;
+        for (int sy = 0; sy < ky; ++sy) {
+          const uint8_t* r = src + (size_t)(y * ky + sy) * sw * cn;
+          for (int sx = 0; sx < kx; ++sx) sum += r[(size_t)(x * kx + sx) * cn + k];
+        }
+        o[x * cn + k] = area == 4 ? (uint8_t)((sum + 2) >> 2)
+                                  : clamp255(round_half_even((float)sum * scale));
+      }
+  }
+}
+
+struct AreaTap {
+  int di, si;
+  float alpha;
+};
+
+// computeResizeAreaTab: each destination cell's source samples and their
+// weights (in double, stored as float).
+std::vector<AreaTap> area_tab(int ssize, int dsize, int cn, double scale) {
+  std::vector<AreaTap> tab;
+  for (int dx = 0; dx < dsize; ++dx) {
+    double fsx1 = dx * scale, fsx2 = fsx1 + scale;
+    double cell = std::min(scale, ssize - fsx1);
+    int sx1 = (int)std::ceil(fsx1), sx2 = (int)std::floor(fsx2);
+    sx2 = std::min(sx2, ssize - 1);
+    sx1 = std::min(sx1, sx2);
+    if (sx1 - fsx1 > 1e-3) tab.push_back({dx * cn, (sx1 - 1) * cn, (float)((sx1 - fsx1) / cell)});
+    for (int sx = sx1; sx < sx2; ++sx) tab.push_back({dx * cn, sx * cn, (float)(1.0 / cell)});
+    if (fsx2 - sx2 > 1e-3)
+      tab.push_back({dx * cn, sx2 * cn, (float)(std::min(std::min(fsx2 - sx2, 1.), cell) / cell)});
+  }
+  return tab;
+}
+
+// cv::resize's general INTER_AREA downscale (ResizeArea_Invoker<uchar,
+// float>): each source row's weighted horizontal sums in float, folded
+// into the destination row with the row's weight, in OpenCV's order.
+void resize_area_tables(const uint8_t* src, int sh, int sw, int cn, uint8_t* dst, int dh,
+                        int dw, double scale_x, double scale_y) {
+  const std::vector<AreaTap> xtab = area_tab(sw, dw, cn, scale_x);
+  const std::vector<AreaTap> ytab = area_tab(sh, dh, 1, scale_y);
+  const int width = dw * cn;
+  std::vector<float> buf(width), sum(width, 0.f);
+  int prev_dy = ytab.empty() ? 0 : ytab[0].di;
+  auto store = [&](int dy) {
+    uint8_t* o = dst + (size_t)dy * width;
+    for (int i = 0; i < width; ++i) o[i] = clamp255(round_half_even(sum[i]));
+  };
+  for (const AreaTap& yt : ytab) {
+    const float beta = yt.alpha;
+    const uint8_t* s = src + (size_t)yt.si * sw * cn;
+    std::fill(buf.begin(), buf.end(), 0.f);
+    for (const AreaTap& xt : xtab)
+      for (int k = 0; k < cn; ++k) buf[xt.di + k] = buf[xt.di + k] + (float)s[xt.si + k] * xt.alpha;
+    if (yt.di != prev_dy) {
+      store(prev_dy);
+      for (int i = 0; i < width; ++i) sum[i] = beta * buf[i];
+      prev_dy = yt.di;
+    } else {
+      for (int i = 0; i < width; ++i) sum[i] += beta * buf[i];
+    }
+  }
+  store(prev_dy);
+}
+
+}  // namespace
+
+extern "C" {
+
 // cv::resize(src, (dw, dh), INTER_LINEAR) on uint8 HWC.
 int hc_resize_bilinear_u8(const uint8_t* src, int sh, int sw, int cn,
                           uint8_t* dst, int dh, int dw) {
@@ -833,58 +953,82 @@ int hc_resize_bilinear_u8(const uint8_t* src, int sh, int sw, int cn,
   const double inv_x = (double)dw / sw, inv_y = (double)dh / sh;
   const double scale_x = 1. / inv_x, scale_y = 1. / inv_y;
   if (scale_x == 2.0 && scale_y == 2.0) {  // INTER_AREA's fast 2x path
-    for (int y = 0; y < dh; ++y) {
-      const uint8_t* r0 = src + (size_t)(2 * y) * sw * cn;
-      const uint8_t* r1 = r0 + (size_t)sw * cn;
-      uint8_t* o = dst + (size_t)y * dw * cn;
-      for (int x = 0; x < dw; ++x)
-        for (int k = 0; k < cn; ++k) {
-          size_t a = (size_t)(2 * x) * cn + k, b = a + cn;
-          o[x * cn + k] = (uint8_t)((r0[a] + r0[b] + r1[a] + r1[b] + 2) >> 2);
-        }
-    }
+    resize_area_fast(src, sw, cn, dst, dh, dw, 2, 2);
     return 0;
   }
   const float ONE = 2048.f;
-  std::vector<int> xofs(dw), a0(dw), a1(dw);
-  std::vector<char> edge(dw);
+  LinearTables t;
+  t.xofs.resize(dw), t.a0.resize(dw), t.a1.resize(dw), t.edge.resize(dw);
   for (int x = 0; x < dw; ++x) {
     float fx = (float)((x + 0.5) * scale_x - 0.5);
     int sx = (int)std::floor(fx);
     fx -= (float)sx;
     if (sx < 0) fx = 0.f, sx = 0;
-    edge[x] = sx >= sw - 1;
-    if (edge[x]) fx = 0.f, sx = sw - 1;
-    xofs[x] = sx;
-    a0[x] = round_half_even((1.f - fx) * ONE);
-    a1[x] = round_half_even(fx * ONE);
+    t.edge[x] = sx >= sw - 1;
+    if (t.edge[x]) fx = 0.f, sx = sw - 1;
+    t.xofs[x] = sx;
+    t.a0[x] = round_half_even((1.f - fx) * ONE);
+    t.a1[x] = round_half_even(fx * ONE);
   }
-  std::vector<int> hrow0((size_t)dw * cn), hrow1((size_t)dw * cn);
-  auto hpass = [&](int sy, int* out) {
-    sy = sy < 0 ? 0 : (sy >= sh ? sh - 1 : sy);
-    const uint8_t* r = src + (size_t)sy * sw * cn;
-    for (int x = 0; x < dw; ++x) {
-      const uint8_t* p = r + (size_t)xofs[x] * cn;
-      for (int k = 0; k < cn; ++k)
-        out[x * cn + k] = edge[x] ? p[k] * 2048
-                                  : p[k] * a0[x] + p[k + cn] * a1[x];
-    }
-  };
-  auto sat16 = [](int v) { return v < -32768 ? -32768 : (v > 32767 ? 32767 : v); };
+  t.yofs.resize(dh), t.b0.resize(dh), t.b1.resize(dh);
   for (int y = 0; y < dh; ++y) {
     float fy = (float)((y + 0.5) * scale_y - 0.5);
     int sy = (int)std::floor(fy);
     fy -= (float)sy;
-    int b0 = round_half_even((1.f - fy) * ONE), b1 = round_half_even(fy * ONE);
-    hpass(sy, hrow0.data());
-    hpass(sy + 1, hrow1.data());
-    uint8_t* o = dst + (size_t)y * dw * cn;
-    for (int i = 0; i < dw * cn; ++i) {
-      int t0 = sat16(hrow0[i] >> 4), t1 = sat16(hrow1[i] >> 4);
-      int m = sat16(((t0 * b0) >> 16) + ((t1 * b1) >> 16));
-      o[i] = clamp255((m + 2) >> 2);
-    }
+    t.yofs[y] = sy;
+    t.b0[y] = round_half_even((1.f - fy) * ONE);
+    t.b1[y] = round_half_even(fy * ONE);
   }
+  resize_linear_core(src, sh, sw, cn, dst, dh, dw, t);
+  return 0;
+}
+
+// cv::resize(src, (dw, dh), INTER_AREA) on uint8 HWC: a copy at equal
+// size; integer factors down in both axes: the fast k x k mean; any other
+// downscale in both axes: the area tables; otherwise (an axis scaled up)
+// the two-tap resampler with INTER_AREA's coefficients.
+int hc_resize_area_u8(const uint8_t* src, int sh, int sw, int cn, uint8_t* dst, int dh,
+                      int dw) {
+  if (sh <= 0 || sw <= 0 || dh <= 0 || dw <= 0 || cn <= 0) return 1;
+  if (sh == dh && sw == dw) {
+    std::memcpy(dst, src, (size_t)sh * sw * cn);
+    return 0;
+  }
+  const double inv_x = (double)dw / sw, inv_y = (double)dh / sh;
+  const double scale_x = 1. / inv_x, scale_y = 1. / inv_y;
+  const int ix = (int)std::lrint(scale_x), iy = (int)std::lrint(scale_y);
+  const bool fast = std::fabs(scale_x - ix) < 2.220446049250313e-16 &&
+                    std::fabs(scale_y - iy) < 2.220446049250313e-16;
+  if (scale_x >= 1 && scale_y >= 1) {
+    if (fast)
+      resize_area_fast(src, sw, cn, dst, dh, dw, ix, iy);
+    else
+      resize_area_tables(src, sh, sw, cn, dst, dh, dw, scale_x, scale_y);
+    return 0;
+  }
+  const float ONE = 2048.f;
+  LinearTables t;
+  t.xofs.resize(dw), t.a0.resize(dw), t.a1.resize(dw), t.edge.resize(dw);
+  for (int x = 0; x < dw; ++x) {
+    int sx = (int)std::floor(x * scale_x);
+    float fx = (float)((x + 1) - (sx + 1) * inv_x);
+    fx = fx <= 0 ? 0.f : fx - std::floor(fx);
+    t.edge[x] = sx >= sw - 1;
+    if (t.edge[x]) fx = 0.f, sx = sw - 1;
+    t.xofs[x] = sx;
+    t.a0[x] = round_half_even((1.f - fx) * ONE);
+    t.a1[x] = round_half_even(fx * ONE);
+  }
+  t.yofs.resize(dh), t.b0.resize(dh), t.b1.resize(dh);
+  for (int y = 0; y < dh; ++y) {
+    int sy = (int)std::floor(y * scale_y);
+    float fy = (float)((y + 1) - (sy + 1) * inv_y);
+    fy = fy <= 0 ? 0.f : fy - std::floor(fy);
+    t.yofs[y] = sy;
+    t.b0[y] = round_half_even((1.f - fy) * ONE);
+    t.b1[y] = round_half_even(fy * ONE);
+  }
+  resize_linear_core(src, sh, sw, cn, dst, dh, dw, t);
   return 0;
 }
 
@@ -943,6 +1087,367 @@ int hc_warp_affine_u8(const uint8_t* src, int sh, int sw, int cn,
       }
     }
   }
+  return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// JPEG encoding (cv::imwrite's defaults through libjpeg-turbo)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// Annex K tables, natural order (jcparam.c std_luminance_quant_tbl and
+// std_chrominance_quant_tbl).
+const uint16_t kStdQuant[2][64] = {
+    {16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+     14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+     18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99},
+    {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99}};
+
+// jstdhuff.c: code counts by length 1..16, then the symbols.
+const uint8_t kDcBits[2][16] = {{0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcBits[2][16] = {{0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+                                {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+const uint8_t kAcVals[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+     0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+     0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+     0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+     0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+     0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+     0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+     0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+     0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+     0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+     0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+     0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+     0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+     0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+     0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+     0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+     0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+     0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+     0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+     0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+     0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+     0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+     0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
+struct HuffCode {
+  uint16_t code[256];
+  uint8_t size[256];
+};
+
+// jchuff.c jpeg_make_c_derived_tbl: canonical codes from the counts.
+void make_huff_code(const uint8_t* bits, const uint8_t* vals, HuffCode& t) {
+  std::memset(t.size, 0, sizeof(t.size));
+  uint32_t code = 0;
+  int p = 0;
+  for (int len = 1; len <= 16; ++len) {
+    for (int i = 0; i < bits[len - 1]; ++i, ++p) {
+      t.code[vals[p]] = (uint16_t)code++;
+      t.size[vals[p]] = (uint8_t)len;
+    }
+    code <<= 1;
+  }
+}
+
+// Quantiser of jcdctmgr.c (8-bit samples, 16-bit DCTELEM as in a SIMD
+// build): reciprocal, correction and shift of compute_reciprocal for the
+// islow divisor quantval << 3.
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+};
+
+Divisor compute_reciprocal(uint32_t divisor) {
+  if (divisor == 1) return {1, 0, 0};  // identity (not reached at <= 255 << 3)
+  int b = 0;
+  while ((1u << (b + 1)) <= divisor) ++b;  // flss(divisor) - 1
+  int r = 16 + b;
+  uint32_t fq = (uint32_t)(((uint64_t)1 << r) / divisor);
+  uint32_t fr = (uint32_t)(((uint64_t)1 << r) % divisor);
+  uint32_t c = divisor / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    --r;
+  } else if (fr <= divisor / 2u) {
+    ++c;
+  } else {
+    ++fq;
+  }
+  return {fq & 0xFFFF, c & 0xFFFF, r - 16};
+}
+
+// jfdctint.c jpeg_fdct_islow: the integer LL&M forward DCT, results scaled
+// up by 8.
+void fdct_islow(int* d) {
+  const int64_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270, F0_899 = 7373,
+                F1_175 = 9633, F1_501 = 12299, F1_847 = 15137, F1_961 = 16069,
+                F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
+  auto descale = [](int64_t x, int n) { return (int)((x + ((int64_t)1 << (n - 1))) >> n); };
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass == 0 ? 1 : 8, stride = pass == 0 ? 8 : 1;
+    const int odd_shift = pass == 0 ? 13 - 2 : 13 + 2;
+    for (int c = 0; c < 8; ++c) {
+      int* p = d + c * stride;
+      int64_t tmp0 = p[0] + p[7 * step], tmp7 = p[0] - p[7 * step];
+      int64_t tmp1 = p[step] + p[6 * step], tmp6 = p[step] - p[6 * step];
+      int64_t tmp2 = p[2 * step] + p[5 * step], tmp5 = p[2 * step] - p[5 * step];
+      int64_t tmp3 = p[3 * step] + p[4 * step], tmp4 = p[3 * step] - p[4 * step];
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+      int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      if (pass == 0) {
+        p[0] = (int)((tmp10 + tmp11) * 4);
+        p[4 * step] = (int)((tmp10 - tmp11) * 4);
+      } else {
+        p[0] = descale(tmp10 + tmp11, 2);
+        p[4 * step] = descale(tmp10 - tmp11, 2);
+      }
+      int64_t z1 = (tmp12 + tmp13) * F0_541;
+      p[2 * step] = descale(z1 + tmp13 * F0_765, odd_shift);
+      p[6 * step] = descale(z1 + tmp12 * -F1_847, odd_shift);
+      z1 = tmp4 + tmp7;
+      int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      int64_t z5 = (z3 + z4) * F1_175;
+      tmp4 *= F0_298;
+      tmp5 *= F2_053;
+      tmp6 *= F3_072;
+      tmp7 *= F1_501;
+      z1 *= -F0_899;
+      z2 *= -F2_562;
+      z3 *= -F1_961;
+      z4 *= -F0_390;
+      z3 += z5;
+      z4 += z5;
+      p[7 * step] = descale(tmp4 + z1 + z3, odd_shift);
+      p[5 * step] = descale(tmp5 + z2 + z4, odd_shift);
+      p[3 * step] = descale(tmp6 + z2 + z3, odd_shift);
+      p[step] = descale(tmp7 + z1 + z4, odd_shift);
+    }
+  }
+}
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint64_t buf = 0;
+  int bits = 0;
+  void put(uint32_t code, int size) {
+    buf = (buf << size) | (code & ((1u << size) - 1));
+    bits += size;
+    while (bits >= 8) {
+      uint8_t c = (uint8_t)(buf >> (bits - 8));
+      out.push_back(c);
+      if (c == 0xFF) out.push_back(0);  // byte stuffing
+      bits -= 8;
+    }
+  }
+  void flush() {  // pad the last byte with ones (jchuff.c flush_bits)
+    if (bits) put(0x7F, 7);
+    buf = 0;
+    bits = 0;
+  }
+};
+
+// jchuff.c encode_one_block.
+void encode_block(BitWriter& w, const int16_t* blk, int& last_dc, const HuffCode& dc,
+                  const HuffCode& ac) {
+  int temp = blk[0] - last_dc, temp2 = temp;
+  last_dc = blk[0];
+  if (temp < 0) temp = -temp, --temp2;
+  int nbits = 0;
+  while (temp) ++nbits, temp >>= 1;
+  w.put(dc.code[nbits], dc.size[nbits]);
+  if (nbits) w.put((uint32_t)temp2, nbits);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    temp = blk[kNatural[k]];
+    if (temp == 0) {
+      ++run;
+      continue;
+    }
+    while (run > 15) {
+      w.put(ac.code[0xF0], ac.size[0xF0]);
+      run -= 16;
+    }
+    temp2 = temp;
+    if (temp < 0) temp = -temp, --temp2;
+    nbits = 1;
+    while (temp >>= 1) ++nbits;
+    const int sym = (run << 4) + nbits;
+    w.put(ac.code[sym], ac.size[sym]);
+    w.put((uint32_t)temp2, nbits);
+    run = 0;
+  }
+  if (run > 0) w.put(ac.code[0], ac.size[0]);
+}
+
+void put_u16(std::vector<uint8_t>& o, int v) {
+  o.push_back((uint8_t)(v >> 8));
+  o.push_back((uint8_t)v);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Baseline JPEG of an RGB uint8 (height, width, 3) image as cv::imwrite
+// writes it with its defaults through libjpeg-turbo: a JFIF 1.01 header,
+// YCbCr 4:2:0 (jccolor.c's fixed-point conversion, jcsample.c's h2v2
+// downsampling with its alternating bias 1, 2, edges replicated as
+// jcprepct.c pads them), the islow forward DCT, jcdctmgr.c's reciprocal
+// quantisation of the Annex K tables scaled to `quality` (baseline-limited),
+// the standard Huffman tables, dummy blocks at the right and bottom edges
+// of the last MCUs as jccoefct.c makes them. Writes up to `cap` bytes to
+// `out` and their count to `out_len`; 1 if `cap` is too small, 2 on bad
+// arguments.
+int hc_jpeg_encode(const uint8_t* rgb, int height, int width, int quality, uint8_t* out,
+                   int64_t cap, int64_t* out_len) {
+  if (height <= 0 || width <= 0 || height > 65535 || width > 65535 || quality < 1 ||
+      quality > 100)
+    return 2;
+  // quantisation tables (jcparam.c jpeg_set_quality, force_baseline)
+  const int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  uint16_t qt[2][64];
+  Divisor div[2][64];
+  for (int t = 0; t < 2; ++t)
+    for (int i = 0; i < 64; ++i) {
+      int64_t v = ((int64_t)kStdQuant[t][i] * scale + 50) / 100;
+      v = v < 1 ? 1 : (v > 255 ? 255 : v);
+      qt[t][i] = (uint16_t)v;
+      div[t][i] = compute_reciprocal((uint32_t)v << 3);
+    }
+  HuffCode dc[2], ac[2];
+  for (int t = 0; t < 2; ++t) {
+    make_huff_code(kDcBits[t], kDcVals, dc[t]);
+    make_huff_code(kAcBits[t], kAcVals[t], ac[t]);
+  }
+
+  // colour conversion (jccolor.c rgb_ycc_convert), full size
+  const int64_t ONE_HALF = (int64_t)1 << 15, CBCR_OFFSET = (int64_t)128 << 16;
+  auto FIX = [](double x) { return (int64_t)(x * 65536.0 + 0.5); };
+  const size_t npix = (size_t)height * width;
+  std::vector<uint8_t> plane[3];
+  for (auto& p : plane) p.resize(npix);
+  for (size_t i = 0; i < npix; ++i) {
+    const int64_t r = rgb[3 * i], g = rgb[3 * i + 1], b = rgb[3 * i + 2];
+    plane[0][i] = (uint8_t)((FIX(0.29900) * r + FIX(0.58700) * g + FIX(0.11400) * b + ONE_HALF) >> 16);
+    plane[1][i] = (uint8_t)((-FIX(0.16874) * r - FIX(0.33126) * g + FIX(0.50000) * b +
+                             CBCR_OFFSET + ONE_HALF - 1) >> 16);
+    plane[2][i] = (uint8_t)((FIX(0.50000) * r - FIX(0.41869) * g - FIX(0.08131) * b +
+                             CBCR_OFFSET + ONE_HALF - 1) >> 16);
+  }
+  // component sample arrays, padded as libjpeg pads them for the DCT
+  const int mcux = (width + 15) / 16, mcuy = (height + 15) / 16;
+  const int ybw = (width + 7) / 8, ybh = (height + 7) / 8;  // real Y blocks
+  const int yw = mcux * 16, yh = mcuy * 16, cw = mcux * 8, ch = mcuy * 8;
+  std::vector<uint8_t> ys((size_t)yh * yw), cs[2];
+  for (int y = 0; y < yh; ++y)
+    for (int x = 0; x < yw; ++x)
+      ys[(size_t)y * yw + x] =
+          plane[0][(size_t)std::min(y, height - 1) * width + std::min(x, width - 1)];
+  const int crows = (height + 1) / 2;  // chroma rows from image rows
+  for (int c = 0; c < 2; ++c) {
+    cs[c].resize((size_t)ch * cw);
+    const uint8_t* p = plane[c + 1].data();
+    for (int y = 0; y < ch; ++y) {
+      if (y >= crows) {  // jcprepct.c: the last downsampled row, repeated
+        std::memcpy(&cs[c][(size_t)y * cw], &cs[c][(size_t)(crows - 1) * cw], cw);
+        continue;
+      }
+      const uint8_t* r0 = p + (size_t)(2 * y) * width;
+      const uint8_t* r1 = p + (size_t)std::min(2 * y + 1, height - 1) * width;
+      int bias = 1;
+      for (int x = 0; x < cw; ++x) {
+        const int x0 = std::min(2 * x, width - 1), x1 = std::min(2 * x + 1, width - 1);
+        cs[c][(size_t)y * cw + x] = (uint8_t)((r0[x0] + r0[x1] + r1[x0] + r1[x1] + bias) >> 2);
+        bias ^= 3;
+      }
+    }
+  }
+  auto dct_block = [&](const std::vector<uint8_t>& s, int stride, int bx, int by,
+                       const Divisor* dv, int16_t* blk) {
+    int d[64];
+    for (int y = 0; y < 8; ++y)
+      for (int x = 0; x < 8; ++x)
+        d[y * 8 + x] = (int)s[(size_t)(by * 8 + y) * stride + bx * 8 + x] - 128;
+    fdct_islow(d);
+    for (int i = 0; i < 64; ++i) {  // jcdctmgr.c quantize
+      int t = d[i];
+      const bool neg = t < 0;
+      if (neg) t = -t;
+      uint32_t prod = ((uint32_t)(uint16_t)(t + dv[i].corr)) * dv[i].recip;
+      t = (int)(prod >> (16 + dv[i].shift));
+      blk[i] = (int16_t)(neg ? -t : t);
+    }
+  };
+
+  std::vector<uint8_t> o;
+  o.reserve((size_t)std::min<int64_t>(cap, (int64_t)npix + 1024));
+  const uint8_t header[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I', 'F', 0x00,
+                            0x01, 0x01, 0x00, 0x00, 0x01, 0x00, 0x01, 0x00, 0x00};
+  o.insert(o.end(), header, header + sizeof(header));
+  for (int t = 0; t < 2; ++t) {  // DQT, zigzag order
+    o.push_back(0xFF), o.push_back(0xDB), put_u16(o, 67), o.push_back((uint8_t)t);
+    for (int i = 0; i < 64; ++i) o.push_back((uint8_t)qt[t][kNatural[i]]);
+  }
+  o.push_back(0xFF), o.push_back(0xC0), put_u16(o, 17), o.push_back(8);
+  put_u16(o, height), put_u16(o, width), o.push_back(3);
+  const uint8_t comps[9] = {1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1};
+  o.insert(o.end(), comps, comps + 9);
+  for (int t = 0; t < 2; ++t)  // DHT: DC then AC of luma, then of chroma
+    for (int is_ac = 0; is_ac < 2; ++is_ac) {
+      const uint8_t* bits = is_ac ? kAcBits[t] : kDcBits[t];
+      const uint8_t* vals = is_ac ? kAcVals[t] : kDcVals;
+      int n = 0;
+      for (int i = 0; i < 16; ++i) n += bits[i];
+      o.push_back(0xFF), o.push_back(0xC4), put_u16(o, 2 + 17 + n);
+      o.push_back((uint8_t)((is_ac << 4) | t));
+      o.insert(o.end(), bits, bits + 16);
+      o.insert(o.end(), vals, vals + n);
+    }
+  const uint8_t sos[] = {0xFF, 0xDA, 0x00, 0x0C, 0x03, 0x01, 0x00, 0x02,
+                         0x11, 0x03, 0x11, 0x00, 0x3F, 0x00};
+  o.insert(o.end(), sos, sos + sizeof(sos));
+
+  BitWriter w{o};
+  int last_dc[3] = {0, 0, 0};
+  int16_t mcu[6][64];
+  for (int my = 0; my < mcuy; ++my)
+    for (int mx = 0; mx < mcux; ++mx) {
+      // luma: 2 x 2 blocks; past the image's blocks, jccoefct.c's dummies
+      // (zero AC, the DC of the block before)
+      for (int yi = 0; yi < 2; ++yi)
+        for (int xi = 0; xi < 2; ++xi) {
+          int16_t* blk = mcu[yi * 2 + xi];
+          const int bx = mx * 2 + xi, by = my * 2 + yi;
+          if (by < ybh && bx < ybw) {
+            dct_block(ys, yw, bx, by, div[0], blk);
+          } else {
+            std::memset(blk, 0, sizeof(mcu[0]));
+            blk[0] = mcu[yi * 2 + xi - 1][0];
+          }
+        }
+      dct_block(cs[0], cw, mx, my, div[1], mcu[4]);
+      dct_block(cs[1], cw, mx, my, div[1], mcu[5]);
+      for (int b = 0; b < 4; ++b) encode_block(w, mcu[b], last_dc[0], dc[0], ac[0]);
+      encode_block(w, mcu[4], last_dc[1], dc[1], ac[1]);
+      encode_block(w, mcu[5], last_dc[2], dc[1], ac[1]);
+    }
+  w.flush();
+  o.push_back(0xFF), o.push_back(0xD9);
+  *out_len = (int64_t)o.size();
+  if ((int64_t)o.size() > cap) return 1;
+  std::memcpy(out, o.data(), o.size());
   return 0;
 }
 

@@ -1,21 +1,28 @@
-"""The cv2 calls of the dataset tools, without cv2.
+"""The cv2 calls of the dataset tools and the apps, without cv2.
 
   imread_rgb(path)             cv.cvtColor(cv.imread(path), cv.COLOR_BGR2RGB)
+  imwrite(path, rgb)           cv.imwrite(path, cv.cvtColor(rgb, cv.COLOR_RGB2BGR))
   resize_bilinear_u8(img, wh)  cv.resize(img, wh)              (INTER_LINEAR)
+  resize_area_u8(img, wh)      cv.resize(img, wh, interpolation=cv.INTER_AREA)
   warp_affine_u8(img, M, wh)   cv.warpAffine(img, M, dsize=wh) (INTER_LINEAR,
                                                                  border 0)
   rodrigues_np(R)              cv.Rodrigues(R)[0].reshape(3)
 
-Each returns what the cv2 call returns, bit for bit. The per-pixel work
-(JPEG's Huffman decoding, IDCT, chroma upsampling and colour conversion;
-PNG's row unfiltering; both resamplers) is host C++,
+Each returns what the cv2 call returns, bit for bit; `imwrite`'s JPEG
+decodes to what cv2's file of the same image decodes to. The per-pixel
+work (JPEG's Huffman coding, DCTs, chroma resampling and colour
+conversion; PNG's row unfiltering; the resamplers) is host C++,
 `csrc/host_codec.cpp`, built with g++ at first use into
 `build/renderih_tpu_torch/` (`kernels/_build.py:load_host`); a failed
-build raises, and there is no Python fallback. PNG's inflate is Python's
-`zlib`. JPEG: baseline and extended sequential Huffman, 8-bit, grey or
-three components, any integral sampling factors, restart markers, and the
-EXIF orientation that cv.imread applies. PNG: 8-bit grey, grey+alpha, RGB
-and RGBA, not interlaced (alpha is dropped, as cv.imread drops it).
+build raises, and there is no Python fallback. PNG's deflate is Python's
+`zlib`; BMP is plain numpy. Reading: JPEG baseline and extended
+sequential Huffman, 8-bit, grey or three components, any integral
+sampling factors, restart markers, and the EXIF orientation that
+cv.imread applies; PNG 8-bit grey, grey+alpha, RGB and RGBA, not
+interlaced (alpha is dropped, as cv.imread drops it); BMP uncompressed
+8-bit palette, 24-bit and 32-bit (the fourth byte dropped), bottom-up or
+top-down. Writing: JPEG baseline 4:2:0 at quality 95 (cv.imwrite's
+defaults), PNG 8-bit RGB.
 """
 
 from __future__ import annotations
@@ -35,10 +42,18 @@ _SIGNATURES = {
     "hc_jpeg_decode": (_I, (_P, _I64, _P, _I, _I, ctypes.c_char_p, _I)),
     "hc_png_unfilter": (_I, (_P, _I64, _I64, _I, _P)),
     "hc_resize_bilinear_u8": (_I, (_P, _I, _I, _I, _P, _I, _I)),
+    "hc_resize_area_u8": (_I, (_P, _I, _I, _I, _P, _I, _I)),
+    "hc_jpeg_encode": (_I, (_P, _I, _I, _I, _P, _I64, ctypes.POINTER(ctypes.c_int64))),
     "hc_warp_affine_u8": (_I, (_P, _I, _I, _I, _P, _P, _I, _I)),
 }
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
+_BMP_INFO_SIZES = (40, 52, 56, 108, 124)  # BITMAPINFOHEADER and its extensions
+_JPEG_QUALITY = 95  # cv.imwrite's default
+
+
+class ImageUnreadableError(FileNotFoundError):
+    """The file is neither JPEG, PNG nor BMP: where cv.imread returns None."""
 
 
 def _lib() -> ctypes.CDLL:
@@ -143,14 +158,47 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
     return np.ascontiguousarray(pix[..., :3])
 
 
+def _decode_bmp(data: bytes, path: str) -> np.ndarray:
+    """8-bit palette, 24-bit or 32-bit uncompressed BMP -> RGB, as
+    cv.imread(IMREAD_COLOR) reads it (palette colours; the fourth byte of a
+    32-bit pixel dropped)."""
+    if len(data) < 30:
+        raise ValueError(f"{path}: truncated BMP header")
+    offset, info = struct.unpack("<I", data[10:14])[0], struct.unpack("<I", data[14:18])[0]
+    if info not in _BMP_INFO_SIZES or len(data) < 14 + info:
+        raise ValueError(f"{path}: unsupported BMP header of {info} bytes")
+    width, height, _, bpp, compression = struct.unpack("<iiHHI", data[18:34])
+    clr_used = struct.unpack("<I", data[46:50])[0]
+    if bpp not in (8, 24, 32) or compression != 0 or width <= 0 or height == 0:
+        raise ValueError(f"{path}: unsupported BMP ({bpp} bits, compression {compression}, "
+                         f"{width}x{height}): uncompressed 8-, 24- or 32-bit only")
+    rows = abs(height)
+    pitch = (width * bpp // 8 + 3) & ~3
+    if len(data) < offset + pitch * rows:
+        raise ValueError(f"{path}: truncated BMP pixel data")
+    raw = np.frombuffer(data, np.uint8, pitch * rows, offset).reshape(rows, pitch)
+    if height > 0:  # bottom-up
+        raw = raw[::-1]
+    if bpp == 8:
+        n = clr_used or 256
+        palette = np.zeros((256, 4), np.uint8)
+        entries = np.frombuffer(data, np.uint8, min(n, 256) * 4, 14 + info).reshape(-1, 4)
+        palette[:len(entries)] = entries
+        bgr = palette[raw[:, :width]][..., :3]
+    else:
+        bgr = raw[:, :width * bpp // 8].reshape(rows, width, bpp // 8)[..., :3]
+    return np.ascontiguousarray(bgr[..., ::-1])
+
+
 def imread_rgb(path) -> np.ndarray:
-    """uint8 (H, W, 3) RGB of a JPEG or PNG file, as
+    """uint8 (H, W, 3) RGB of a JPEG, PNG or BMP file, as
     `cv.cvtColor(cv.imread(path), cv.COLOR_BGR2RGB)` returns it.
 
-    Raises FileNotFoundError naming the path if the file is missing or is
-    neither JPEG nor PNG (where cv.imread returns None), and ValueError
-    naming it for a JPEG or PNG this reader does not decode (progressive or
-    arithmetic-coded JPEG, 16-bit or interlaced PNG) or a corrupt one."""
+    Raises FileNotFoundError naming the path if the file is missing, its
+    subclass ImageUnreadableError if it is neither JPEG, PNG nor BMP (where
+    cv.imread returns None), and ValueError naming it for a file this
+    reader does not decode (progressive or arithmetic-coded JPEG, 16-bit or
+    interlaced PNG, compressed or 1-, 4- or 16-bit BMP) or a corrupt one."""
     path = str(path)
     try:
         with open(path, "rb") as f:
@@ -161,7 +209,62 @@ def imread_rgb(path) -> np.ndarray:
         return _decode_jpeg(data, path)
     if data[:8] == _PNG_MAGIC:
         return _decode_png(data, path)
-    raise FileNotFoundError(f"image unreadable (neither JPEG nor PNG): {path}")
+    if data[:2] == b"BM":
+        return _decode_bmp(data, path)
+    raise ImageUnreadableError(f"image unreadable (neither JPEG, PNG nor BMP): {path}")
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 RGB image as PNG bytes (8-bit truecolour, no
+    filter, zlib level 6)."""
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError(f"png_bytes wants (H, W, 3) uint8, got {img.shape} {img.dtype}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (_PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def encode_jpeg(rgb: np.ndarray) -> bytes:
+    """Baseline JPEG of an RGB uint8 (H, W, 3) image with cv.imwrite's
+    defaults (quality 95, 4:2:0, standard Huffman tables; libjpeg-turbo's
+    forward path, `csrc/host_codec.cpp:hc_jpeg_encode`)."""
+    rgb = _u8(rgb)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"JPEG: expected an RGB (H, W, 3) image, got {rgb.shape}")
+    h, w = rgb.shape[:2]
+    # an MCU's six blocks take at most 6 * 216 bytes of codes, twice that
+    # with every byte stuffed
+    cap = (-(-h // 16)) * (-(-w // 16)) * 6 * 432 + 1024
+    out = np.empty(cap, np.uint8)
+    n = ctypes.c_int64()
+    rc = _lib().hc_jpeg_encode(_ptr(rgb), h, w, _JPEG_QUALITY, _ptr(out), cap, ctypes.byref(n))
+    if rc:
+        raise ValueError(f"JPEG encode failed ({rc}): {rgb.shape}")
+    return out[:n.value].tobytes()
+
+
+def imwrite(path, img: np.ndarray) -> None:
+    """Write an RGB uint8 (H, W, 3) image as
+    `cv.imwrite(path, cv.cvtColor(img, cv.COLOR_RGB2BGR))` does with its
+    defaults, the format from the suffix: `.png` (lossless), `.jpg` or
+    `.jpeg` (`encode_jpeg`). Raises ValueError for another suffix."""
+    path = str(path)
+    suffix = path.lower().rsplit(".", 1)[-1] if "." in path else ""
+    img = _u8(img)
+    if suffix == "png":
+        data = png_bytes(img)
+    elif suffix in ("jpg", "jpeg"):
+        data = encode_jpeg(img)
+    else:
+        raise ValueError(f"imwrite: unsupported suffix of {path} (.png, .jpg, .jpeg)")
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _u8(img: np.ndarray) -> np.ndarray:
@@ -182,6 +285,18 @@ def resize_bilinear_u8(img: np.ndarray, size) -> np.ndarray:
     if _lib().hc_resize_bilinear_u8(_ptr(img), img.shape[0], img.shape[1], cn,
                                     _ptr(out), h, w):
         raise ValueError(f"resize_bilinear_u8: bad sizes {img.shape} -> {size}")
+    return out
+
+
+def resize_area_u8(img: np.ndarray, size) -> np.ndarray:
+    """`cv.resize(img, size, interpolation=cv.INTER_AREA)` of a uint8 image;
+    size is (width, height), as cv2's dsize."""
+    img = _u8(img)
+    w, h = int(size[0]), int(size[1])
+    cn = 1 if img.ndim == 2 else img.shape[2]
+    out = np.empty((h, w) + img.shape[2:], np.uint8)
+    if _lib().hc_resize_area_u8(_ptr(img), img.shape[0], img.shape[1], cn, _ptr(out), h, w):
+        raise ValueError(f"resize_area_u8: bad sizes {img.shape} -> {size}")
     return out
 
 

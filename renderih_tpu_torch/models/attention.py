@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from renderih_tpu_torch.kernels.fused_attention import fused_mha, mha_reference
-from renderih_tpu_torch.models.layers import Conv2d, Linear
+from renderih_tpu_torch.models.layers import Conv2d, LayerNorm, Linear
 from renderih_tpu_torch.ops.dropout import dropout
 
 _LN_EPS = 1e-6
@@ -34,7 +34,7 @@ class MlpResBlock(nn.Module):
 
     def __init__(self, dim: int, hid_dim: int, dropout: float = 0.1):
         super().__init__()
-        self.layer_norm = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.layer_norm = LayerNorm(dim, eps=_LN_EPS)
         self.fc1 = Linear(dim, hid_dim)
         self.fc2 = Linear(hid_dim, dim)
         self.dropout = dropout
@@ -67,7 +67,7 @@ class SelfAttn(nn.Module):
         d_model = n_heads * (f_dim // n_heads)
         self.n_heads = n_heads
         self.dropout = dropout
-        self.layer_norm = nn.LayerNorm(f_dim, eps=_LN_EPS)
+        self.layer_norm = LayerNorm(f_dim, eps=_LN_EPS)
         self.w_qs = Linear(f_dim, d_model)
         self.w_ks = Linear(f_dim, d_model)
         self.w_vs = Linear(f_dim, d_model)
@@ -102,8 +102,8 @@ class InterAttn(nn.Module):
         self.w_ks = Linear(f_dim, d_model)
         self.w_vs = Linear(f_dim, d_model)
         self.fc = Linear(d_model, f_dim)
-        self.layer_norm1 = nn.LayerNorm(f_dim, eps=_LN_EPS)
-        self.layer_norm2 = nn.LayerNorm(f_dim, eps=_LN_EPS)
+        self.layer_norm1 = LayerNorm(f_dim, eps=_LN_EPS)
+        self.layer_norm2 = LayerNorm(f_dim, eps=_LN_EPS)
         self.ffL = MlpResBlock(f_dim, f_dim, dropout)
         self.ffR = MlpResBlock(f_dim, f_dim, dropout)
 

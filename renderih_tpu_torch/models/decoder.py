@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from renderih_tpu_torch.models.dual_graph import DualGraph
-from renderih_tpu_torch.models.layers import Linear
+from renderih_tpu_torch.models.layers import LayerNorm, Linear
 from renderih_tpu_torch.ops.projection import orthographic_project
 
 
@@ -81,9 +81,9 @@ class GraphDecoder(nn.Module):
         self.dtype = dtype
         fin = global_dim + bbox_dim
         self.gf_layer_left = nn.Sequential(
-            Linear(fin, gcn_in_dims[0] - 3), nn.LayerNorm(gcn_in_dims[0] - 3, eps=1e-6))
+            Linear(fin, gcn_in_dims[0] - 3), LayerNorm(gcn_in_dims[0] - 3, eps=1e-6))
         self.gf_layer_right = nn.Sequential(
-            Linear(fin, gcn_in_dims[0] - 3), nn.LayerNorm(gcn_in_dims[0] - 3, eps=1e-6))
+            Linear(fin, gcn_in_dims[0] - 3), LayerNorm(gcn_in_dims[0] - 3, eps=1e-6))
         self.dual_gcn = DualGraph(
             self.verts_nums, tuple(gcn_in_dims), tuple(gcn_out_dims),
             tuple(img_sizes), tuple(img_dims), tuple(grid_f_dims), grid_size,

@@ -28,7 +28,7 @@ from torch import nn
 
 from renderih_tpu_torch.graph.ops import cheby_basis, graph_upsample
 from renderih_tpu_torch.models.attention import ImgEx, InterAttn
-from renderih_tpu_torch.models.layers import Linear
+from renderih_tpu_torch.models.layers import LayerNorm, Linear
 from renderih_tpu_torch.ops.dropout import dropout
 
 _LN_EPS = 1e-6
@@ -52,12 +52,12 @@ class GcnResBlock(nn.Module):
         self.use_cheby = use_cheby
         self.k = graph_k
         k = graph_k if use_cheby else 1
-        self.norm1 = nn.LayerNorm(in_dim, eps=_LN_EPS)
+        self.norm1 = LayerNorm(in_dim, eps=_LN_EPS)
         self.fc1 = Linear(in_dim * k, out_dim)
-        self.norm2 = nn.LayerNorm(out_dim, eps=_LN_EPS)
+        self.norm2 = LayerNorm(out_dim, eps=_LN_EPS)
         self.fc2 = Linear(out_dim * k, out_dim)
         self.shortcut = Linear(in_dim, out_dim)
-        self.norm3 = nn.LayerNorm(out_dim, eps=_LN_EPS)
+        self.norm3 = LayerNorm(out_dim, eps=_LN_EPS)
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor, laplacian: torch.Tensor | None = None) -> torch.Tensor:

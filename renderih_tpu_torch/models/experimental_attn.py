@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from renderih_tpu_torch.models.attention import MlpResBlock, SelfAttn
-from renderih_tpu_torch.models.layers import Linear
+from renderih_tpu_torch.models.layers import LayerNorm, Linear
 from renderih_tpu_torch.ops.dropout import dropout
 
 _LN_EPS = 1e-6
@@ -109,7 +109,7 @@ class _SiluBlock(nn.Module):
     def __init__(self, latent_dim: int, dropout: float = 0.1):
         super().__init__()
         self.dropout = dropout
-        self.norm = nn.LayerNorm(latent_dim, eps=_LN_EPS)
+        self.norm = LayerNorm(latent_dim, eps=_LN_EPS)
         self.fc1 = Linear(latent_dim, 4 * latent_dim)
         self.fc2 = Linear(4 * latent_dim, latent_dim)
 
@@ -130,8 +130,8 @@ class LinearCrossAttention(nn.Module):
         f = latent_dim
         self.L_self_attn = SelfAttn(f, n_heads, 4 * f, dropout)
         self.R_self_attn = SelfAttn(f, n_heads, 4 * f, dropout)
-        self.norm1 = nn.LayerNorm(f, eps=_LN_EPS)
-        self.norm2 = nn.LayerNorm(f, eps=_LN_EPS)
+        self.norm1 = LayerNorm(f, eps=_LN_EPS)
+        self.norm2 = LayerNorm(f, eps=_LN_EPS)
         for side in ("l", "r"):
             setattr(self, f"{side}_qs", Linear(f, 1))
             setattr(self, f"{side}_ks", Linear(f, f))

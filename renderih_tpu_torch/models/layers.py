@@ -5,9 +5,11 @@
     package's modules do with `dtype=` (f32 params, bf16 compute under
     `train.precision="bf16"`). A module's compute dtype is therefore set by
     casting its input, at the same places the JAX package casts. For
-    float32 input these are exactly the stock torch layers. `nn.LayerNorm`
-    takes a bf16 input with float32 parameters as it is (normalising in
-    float32).
+    float32 input these are exactly the stock torch layers.
+  * `LayerNorm`: flax `nn.LayerNorm(dtype=...)` on float32 parameters:
+    normalises in float32 and returns its input's dtype. torch's CPU kernel
+    takes a bf16 input with float32 parameters as it is, but its CUDA
+    kernel refuses the mix, so the input is cast up and the result down.
   * `BatchNorm2d`: flax `nn.BatchNorm(momentum=0.9)` in training.
 
 Dropout is `ops/dropout.py`.
@@ -44,6 +46,12 @@ def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):

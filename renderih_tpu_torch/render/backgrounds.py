@@ -1,20 +1,32 @@
-"""Procedural backgrounds, skin albedo and lighting for synthetic data
-(counterpart of `renderih_tpu/render/backgrounds.py`).
+"""Backgrounds, skin albedo and lighting for synthetic data (counterpart
+of `renderih_tpu/render/backgrounds.py`).
+
+Two kinds of background, as the reference's Blender pipeline composites
+rendered hands over random background images
+(`rendering_code/step4_load_mano_diffbg.py`):
+  * `BackgroundCorpus`: a directory of real images, each centre-cropped to
+    a square and resized to the render size once on the host (cv2-free:
+    `data/image_io.py`), held on the device as an (N, S, S, 3) float32
+    stack in [0, 1]; `sample` picks images with a random flip and gain;
+  * procedural (`random_background` without a corpus): solid colours,
+    gradients, tinted value noise and blends, per sample.
 
 Each random function is split into its draws (from an explicit
 `torch.Generator`, on the generator's device) and a deterministic
 transform of those draws, so that the transform can be held against the
-JAX package on the same numbers. The image-corpus sampler
-(`BackgroundCorpus`) is not ported yet; the cv2-free image reader it
-needs is `data/image_io.py:imread_rgb`.
+JAX package on the same numbers.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from renderih_tpu_torch.data.image_io import ImageUnreadableError, imread_rgb, resize_area_u8
 
 
 def _uniform(gen: torch.Generator, shape, low: float = 0.0, high: float = 1.0):
@@ -86,8 +98,64 @@ def background(kind: torch.Tensor, solid: torch.Tensor, grad: torch.Tensor,
     return stack[torch.arange(kind.shape[0], device=kind.device), kind]
 
 
-def random_background(gen: torch.Generator, bs: int, size: int) -> torch.Tensor:
-    """Batched procedural background in [0, 1], (bs, size, size, 3)."""
+class BackgroundCorpus:
+    """A directory of background images as a stack on `device`.
+
+    The sorted listing of files with one of `EXTS` (case-insensitive), at
+    most `limit`, each read as cv.imread reads it, centre-cropped to a
+    square and resized to `size` with INTER_AREA, bit for bit as the JAX
+    package loads them. A file that is no image at all (cv.imread: None)
+    is skipped; a file this reader cannot decode raises.
+    """
+
+    EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+
+    def __init__(self, directory: str, size: int = 256, limit: int = 4096,
+                 device: torch.device | str = "cpu"):
+        paths = sorted(os.path.join(directory, f) for f in os.listdir(directory)
+                       if f.lower().endswith(self.EXTS))[:limit]
+        if not paths:
+            raise ValueError(f"no background images in {directory}")
+        imgs = []
+        for p in paths:
+            try:
+                img = imread_rgb(p)
+            except ImageUnreadableError:
+                continue
+            h, w = img.shape[:2]
+            s = min(h, w)
+            y0, x0 = (h - s) // 2, (w - s) // 2
+            imgs.append(resize_area_u8(img[y0:y0 + s, x0:x0 + s], (size, size)))
+        if not imgs:
+            raise ValueError(f"no readable background images in {directory}")
+        self.size = size
+        self.images = torch.from_numpy(np.stack(imgs).astype(np.float32) / 255.0).to(device)
+
+    def transform(self, idx: torch.Tensor, flip: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
+        """Images `idx` (B,), mirrored left-right where `flip` (B,) bool,
+        times `gain` (B, 1, 1, 1), clipped to [0, 1]."""
+        imgs = self.images[idx]
+        imgs = torch.where(flip[:, None, None, None], imgs.flip(2), imgs)
+        return torch.clamp(imgs * gain, 0.0, 1.0)
+
+    def sample(self, gen: torch.Generator, bs: int) -> torch.Tensor:
+        """(bs, size, size, 3) in [0, 1]: a uniform pick, a fair flip and a
+        gain in [0.7, 1.2) per sample."""
+        idx = torch.randint(0, self.images.shape[0], (bs,), generator=gen, device=gen.device)
+        flip = torch.rand((bs,), generator=gen, device=gen.device) < 0.5
+        gain = _uniform(gen, (bs, 1, 1, 1), 0.7, 1.2)
+        return self.transform(idx.to(self.images.device), flip.to(self.images.device),
+                              gain.to(self.images.device))
+
+
+def random_background(gen: torch.Generator, bs: int, size: int,
+                      corpus: BackgroundCorpus | None = None) -> torch.Tensor:
+    """Batched background in [0, 1], (bs, size, size, 3): augmented corpus
+    images with `corpus`, else procedural."""
+    if corpus is not None:
+        if corpus.size != size:
+            raise ValueError(f"corpus of {corpus.size}² images for a {size}² render")
+        return corpus.sample(gen, bs)
     kind = torch.randint(0, 4, (bs,), generator=gen, device=gen.device)
     solid = _uniform(gen, (bs, 1, 1, 3))
     grad = _gradient(gen, bs, size)

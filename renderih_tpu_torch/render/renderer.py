@@ -1,12 +1,15 @@
 """Two-hand mesh renderer (counterpart of `renderih_tpu/render/renderer.py`,
 the reference's `mano_two_hands_renderer`).
 
-RGB from per-hand orthographic cameras (`render_rgb_orth`) and binary
-masks (`render_mask`), shaded per vertex: Lambert or Blinn-Phong under
-one directional light, with optional point-based ambient occlusion and a
-directional soft shadow between the hands. Everything is batched over
-scenes; `overlay` blends a render over an image. The perspective and
-densepose paths of the JAX renderer wait for the demo slice.
+RGB from per-hand orthographic cameras (`render_rgb_orth`), RGB and masks
+through per-frame pinhole intrinsics (`render_rgb_perspective`,
+`render_mask_perspective`: the reference's `PerspectiveCameras` from
+`cameraIn`, `utils/vis_utils.py:72-80`), binary masks (`render_mask`) and
+vertex-colour (densepose) maps (`render_densepose`). Shading is per
+vertex: Lambert or Blinn-Phong under one directional light, with optional
+point-based ambient occlusion and a directional soft shadow between the
+hands. Everything is batched over scenes on the rasteriser
+(`render/rasterize.py`); `overlay` blends a render over an image.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from renderih_tpu_torch.ops.projection import orthographic_project
+from renderih_tpu_torch.ops.projection import orthographic_project, pinhole_project
 from renderih_tpu_torch.render.rasterize import pick_row_block, rasterize_orthographic
 
 _LEFT_COLOR = np.array([0.4, 0.55, 0.85])
@@ -109,6 +112,25 @@ class TwoHandRenderer:
                                    light_color, ambient, specular, shininess, ao,
                                    soft_shadow)
 
+    def render_rgb_perspective(self, camera_in, verts_left, verts_right, albedo=None,
+                               light_dir=None, light_color=None, ambient=None,
+                               specular: float = 0.0, shininess: float = 16.0,
+                               ao: float = 0.0, soft_shadow: float = 0.0):
+        """Shaded RGB through per-frame pinhole intrinsics: camera_in
+        (B, 3, 3); verts_* (B, V, 3) in camera space (+z towards the scene,
+        e.g. `world @ cam_R.T + cam_t`, `utils/compute_maskiou.py:190-198`).
+        The shading options are `render_rgb_orth`'s. Returns (rgb
+        (B, H, W, 3), mask (B, H, W))."""
+        verts = torch.cat([verts_left, verts_right], dim=1)
+        v2d, depth = pinhole_project(verts, camera_in)
+        return self._render_shaded(v2d, depth, verts, albedo, light_dir, light_color,
+                                   ambient, specular, shininess, ao, soft_shadow)
+
+    def render_mask_perspective(self, camera_in, verts_left, verts_right):
+        """Two-hand silhouette (B, H, W) through pinhole intrinsics."""
+        _, mask = self.render_rgb_perspective(camera_in, verts_left, verts_right)
+        return mask
+
     def _render_shaded(self, v2d, z, verts, albedo, light_dir, light_color, ambient,
                        specular, shininess, ao, soft_shadow):
         bs, dtype, device = verts.shape[0], verts.dtype, verts.device
@@ -157,6 +179,22 @@ class TwoHandRenderer:
     def render_mask(self, scale, trans2d, verts_left, verts_right):
         _, mask = self.render_rgb_orth(scale, trans2d, verts_left, verts_right)
         return mask
+
+    def render_densepose(self, scale, trans2d, verts_left, verts_right,
+                         dense_colors: torch.Tensor):
+        """Vertex-colour (densepose-style) map under the per-hand
+        orthographic cameras: dense_colors (2V, 3) interpolated over each
+        face. Returns (attr (B, H, W, 3), mask (B, H, W))."""
+        v2d = torch.cat([
+            orthographic_project(scale["left"], trans2d["left"], verts_left, self.img_size),
+            orthographic_project(scale["right"], trans2d["right"], verts_right, self.img_size),
+        ], dim=1)
+        verts = torch.cat([verts_left, verts_right], dim=1)
+        bs, n = verts.shape[0], self.img_size
+        attr, mask, _ = rasterize_orthographic(
+            v2d, verts[..., 2], dense_colors.expand(bs, -1, -1), self.faces, height=n, width=n,
+            row_block=pick_row_block(bs, n, n, self.faces.shape[0]))
+        return attr, mask
 
     @staticmethod
     def overlay(img01: torch.Tensor, rgb: torch.Tensor, mask: torch.Tensor,

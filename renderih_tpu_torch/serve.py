@@ -12,8 +12,12 @@
     `submit()` calls are coalesced for up to `max_wait_ms` and run as one
     padded device batch; callers get futures.
 
-The engine runs on the card (`device=None` means `cuda`) and raises where
-there is none; pass `device="cpu"` to run the plain versions on the CPU.
+`decoder_bf16=True` runs the decoder trunk in bf16 (the engine's own copy
+of the config gets `model.decoder_f32 = False`; JAX's serving knob,
+`renderih_tpu/serve.py:55-64`): more throughput, not prediction-exact
+(`tools/validate_bf16_decoder.py` measures how far trained predictions
+move). The engine runs on the card (`device=None` means `cuda`) and raises
+where there is none; pass `device="cpu"` to run the plain versions on the CPU.
 With a mesh (`parallel/mesh.py`; JAX's `mesh=`, `renderih_tpu/serve.py:
 67-72,109-122`) every bucket is rounded up to a multiple of the data
 axis, the weights are replicated on each of its devices, and each bucket
@@ -77,9 +81,12 @@ class InferenceEngine:
         seed: int = 0,
         checkpoint: str | None = None,
         mesh: Mesh | None = None,
+        decoder_bf16: bool = False,
     ):
         # own copy: never mutate a caller's Config
         self.cfg = copy.deepcopy(cfg) if cfg is not None else Config()
+        if decoder_bf16:
+            self.cfg.model.decoder_f32 = False
         self.buckets = tuple(sorted(buckets))
         if mesh is not None:
             want, first = torch.device(device or mesh.devices[0]), mesh.devices[0]

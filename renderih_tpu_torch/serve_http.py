@@ -20,7 +20,7 @@ A single image goes through the batcher; a batch goes straight to
 request gets 400, an unknown path 404.
 
     python -m renderih_tpu_torch.serve_http [--port 8000] [--cfg YAML] \
-        [--ckpt DIR] [--warmup] [--device cuda|cpu]
+        [--ckpt DIR] [--decoder_bf16] [--warmup] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -138,13 +138,17 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--cfg", default=None, help="YAML config (default: Config())")
     p.add_argument("--ckpt", default=None, help="checkpoint directory of the port's trainer")
+    p.add_argument("--decoder_bf16", action="store_true",
+                   help="the decoder trunk in bf16: more throughput, NOT prediction-exact "
+                        "(python -m renderih_tpu_torch.tools.validate_bf16_decoder)")
     p.add_argument("--warmup", action="store_true",
                    help="run every bucket once before accepting traffic")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
 
-    engine = InferenceEngine(load_config(args.cfg), checkpoint=args.ckpt, device=args.device)
+    engine = InferenceEngine(load_config(args.cfg), checkpoint=args.ckpt, device=args.device,
+                             decoder_bf16=args.decoder_bf16)
     if args.warmup:
         engine.warmup()
     server = HandPoseHTTPServer(engine, host=args.host, port=args.port)

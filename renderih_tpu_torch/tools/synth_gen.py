@@ -8,14 +8,20 @@
      Adam steps, SDF grid 16: kernel B3 on the card, 2 fields per step),
      with the Gaussian naturalness prior or, with `--prior gan`, the
      trained discriminator's (`--prior_weights`, the port's copy by default);
-  3. render RGB with random skin albedo, a random directional light with
-     Blinn-Phong highlights and a procedural background, plus pixel noise;
+  3. render RGB with random skin albedo and a random directional light:
+     the rasteriser with Blinn-Phong highlights, or with `--renderer
+     pathtrace` the path tracer (`render/pathtrace.py`: a disk area light,
+     soft shadows, `--bounces` of interreflection, `--spp` samples a
+     pixel); composite over a procedural background or, with
+     `--backgrounds DIR`, over augmented images of that directory
+     (`BackgroundCorpus`), plus pixel noise;
   4. project the labels with the sampled cameras;
   5. write `{split}_images.u8` (uint8 memmap (N, 256, 256, 3)) and
      `{split}_labels.npz` (LABEL_KEYS), the layout the packed-dataset
      readers load.
 
     python -m renderih_tpu_torch.tools.synth_gen --out DIR --n 512 [--optimize [--prior gan]]
+        [--backgrounds DIR] [--renderer pathtrace [--spp 8] [--bounces 2]]
     python -m renderih_tpu_torch.tools.synth_gen --out DIR --n 2 --device cpu
 
 Runs on the card unless `--device cpu` asks for the plain versions on the
@@ -51,14 +57,14 @@ from renderih_tpu_torch.optimize.geo import (
     optimize_two_hands,
 )
 from renderih_tpu_torch.render.backgrounds import (
+    BackgroundCorpus,
     random_background,
     random_lighting,
     random_skin_albedo,
 )
+from renderih_tpu_torch.render.pathtrace import TwoHandPathTracer
 from renderih_tpu_torch.render.renderer import TwoHandRenderer
 from renderih_tpu_torch.serve import resolve_device
-
-_WAITS = "waits for a later slice of the port (ROADMAP.md queue A)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,9 +84,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prior_weights", default=POSE_PRIOR_PATH,
                    help="npz artifact for --prior gan (default: the port's copy)")
     p.add_argument("--backgrounds", default=None,
-                   help="directory of background images (not ported yet)")
+                   help="directory of background images to composite over (the reference's "
+                        "Blender pipeline); procedural backgrounds when omitted")
     p.add_argument("--renderer", choices=("raster", "pathtrace"), default="raster",
-                   help="pathtrace: not ported yet")
+                   help="raster: the Phong rasteriser; pathtrace: Monte-Carlo path tracing "
+                        "(area-light soft shadows, interreflection; render/pathtrace.py)")
+    p.add_argument("--spp", type=int, default=8,
+                   help="samples a pixel for --renderer pathtrace")
+    p.add_argument("--bounces", type=int, default=2,
+                   help="indirect bounces for --renderer pathtrace")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -107,8 +119,10 @@ def _sample_raw(gen: torch.Generator, bs: int) -> dict:
     return raw
 
 
-def _finalize(raw: dict, gen: torch.Generator, assets, renderer) -> dict:
-    """Parameters -> geometry, labels and the rendered image."""
+def _finalize(raw: dict, gen: torch.Generator, assets, renderer, tracer=None, corpus=None,
+              spp: int = 8, bounces: int = 2) -> dict:
+    """Parameters -> geometry, labels and the rendered image (the path
+    tracer's if `tracer`, over `corpus`'s images if given)."""
     bs = raw["scale"].shape[0]
     size = renderer.img_size
     v_l, j_l = mano_forward(assets.left.mano, rodrigues(raw["root_l"]), raw["pose_l"],
@@ -121,13 +135,17 @@ def _finalize(raw: dict, gen: torch.Generator, assets, renderer) -> dict:
 
     albedo = random_skin_albedo(gen, bs, renderer.num_verts)
     light_dir, light_color, ambient = random_lighting(gen, bs)
-    rgb, mask = renderer.render_rgb_orth(
-        {"left": scale, "right": scale}, {"left": trans_l, "right": trans_r}, v_l, v_r,
-        albedo=albedo, light_dir=light_dir, light_color=light_color, ambient=ambient,
-        specular=0.15)
-    bg = random_background(gen, bs, size)
+    cams = {"left": scale, "right": scale}, {"left": trans_l, "right": trans_r}
+    if tracer is not None:
+        rgb, mask = tracer.render(*cams, v_l, v_r, albedo, gen, light_dir=light_dir,
+                                  spp=spp, n_bounces=bounces)
+    else:
+        rgb, mask = renderer.render_rgb_orth(
+            *cams, v_l, v_r, albedo=albedo, light_dir=light_dir, light_color=light_color,
+            ambient=ambient, specular=0.15)
+    bg = random_background(gen, bs, size, corpus=corpus)
     noise = torch.randn(rgb.shape, generator=gen, device=gen.device) * 0.02
-    img = torch.clamp(torch.where(mask[..., None], rgb, bg) + noise, 0, 1)
+    img = torch.clamp(torch.where(mask[..., None] > 0, rgb, bg) + noise, 0, 1)
     zeros = torch.zeros((bs, 3), device=scale.device)
     return dict(
         img_u8=(img * 255).to(torch.uint8),
@@ -196,14 +214,15 @@ def _make_refine(assets, opt_iters: int, device: torch.device, prior_kind: str =
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.backgrounds:
-        raise NotImplementedError(f"--backgrounds (BackgroundCorpus) {_WAITS}")
-    if args.renderer == "pathtrace":
-        raise NotImplementedError(f"--renderer pathtrace (render/pathtrace.py) {_WAITS}")
-
     device = resolve_device(args.device)
     assets = manos_to(load_assets(Config().assets), device)
     renderer = TwoHandRenderer(assets, IMG_SIZE, device=device)
+    tracer = (TwoHandPathTracer(assets, IMG_SIZE, device=device)
+              if args.renderer == "pathtrace" else None)
+    corpus = (BackgroundCorpus(args.backgrounds, IMG_SIZE, device=device)
+              if args.backgrounds else None)
+    if corpus is not None:
+        print(f"background corpus: {corpus.images.shape[0]} images", flush=True)
     refine = (_make_refine(assets, args.opt_iters, device, args.prior, args.prior_weights)
               if args.optimize else None)
 
@@ -236,7 +255,8 @@ def main(argv=None) -> dict:
             sync()
             refine_s += time.perf_counter() - t0
         with torch.no_grad():
-            batch = _finalize(raw, gen, assets, renderer)
+            batch = _finalize(raw, gen, assets, renderer, tracer, corpus, args.spp,
+                              args.bounces)
         rows = slice(written, written + bs)
         images[rows] = batch["img_u8"].cpu().numpy()
         for k in LABEL_KEYS:

@@ -4,36 +4,19 @@
 reference's plain-text rank-0 log lines (`core/lijun_trainer.py:318-340`).
 `write_image` saves an image (the in-training eval overlays, the
 reference's render-to-TensorBoard visualisation, `utils/tb_utils.py:48-111`)
-as a PNG under `{dir}/vis/`, encoded with the standard library; a failed
-write raises.
+as a PNG under `{dir}/vis/` (`data/image_io.py:png_bytes`, the standard
+library's zlib); a failed write raises.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import struct
 import time
-import zlib
 
 import numpy as np
 
-
-def png_bytes(img: np.ndarray) -> bytes:
-    """An (H, W, 3) uint8 RGB image as PNG bytes (8-bit truecolour, no
-    filter, zlib level 6)."""
-    h, w, c = img.shape
-    if c != 3 or img.dtype != np.uint8:
-        raise ValueError(f"png_bytes wants (H, W, 3) uint8, got {img.shape} {img.dtype}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+from renderih_tpu_torch.data.image_io import png_bytes
 
 
 class MetricsWriter:

@@ -399,6 +399,27 @@ def test_engine_on_card_matches_cpu_and_launches_the_kernels(cuda):
         assert err <= 1e-4, f"{key}: rel max|Δ| {err:.3e}"
 
 
+def test_bf16_decoder_engine_runs_on_the_card(cuda):
+    """`InferenceEngine(decoder_bf16=True)` on the card (a bf16 decoder
+    trunk: its LayerNorms get bf16 inputs, which torch's CUDA kernel takes
+    only with bf16 parameters): finite outputs, 13 conv and 24 attention
+    launches a forward, equal to an engine on `decoder_f32=False`."""
+    cfg = load_config(overrides={
+        "model": {"encoder": "resnet18", "img_size": 128, "grid_size": 4,
+                  "graph_layer_num": 2}})
+    assets = make_synthetic_assets(0)
+    imgs = np.random.default_rng(1).integers(0, 256, (4, 128, 128, 3), dtype=np.uint8)
+    n_conv, n_mha = conv3x3.launches.value, fused_attention.launches.value
+    got = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda,
+                          decoder_bf16=True).predict(imgs)
+    assert conv3x3.launches.value - n_conv == 13
+    assert fused_attention.launches.value - n_mha == 24
+    cfg.model.decoder_f32 = False
+    ref = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda).predict(imgs)
+    for key, want in ref.items():
+        assert np.isfinite(got[key]).all() and np.array_equal(got[key], want), key
+
+
 @pytest.mark.parametrize("encoder,size,b2,b1", [
     ("hrnet_w18", 128, 216, 24), ("vit_tiny_card_test", 256, 0, 2 + 1 + 24)])
 def test_hrnet_and_vit_engines_on_card_match_cpu(cuda, monkeypatch, encoder, size, b2, b1):

@@ -1,5 +1,5 @@
-"""The port's image reader and resamplers (`renderih_tpu_torch/data/
-image_io.py`, C++ in `csrc/host_codec.cpp`) against cv2, bit for bit.
+"""The port's image reader, writer and resamplers (`renderih_tpu_torch/
+data/image_io.py`, C++ in `csrc/host_codec.cpp`) against cv2, bit for bit.
 
 cv2 is imported only here (and skipped without it, as the JAX tests do);
 the port itself never imports it. The committed fixtures of
@@ -16,7 +16,11 @@ import numpy as np
 import pytest
 
 from renderih_tpu_torch.data.image_io import (
+    ImageUnreadableError,
+    encode_jpeg,
     imread_rgb,
+    imwrite,
+    resize_area_u8,
     resize_bilinear_u8,
     rodrigues_np,
     warp_affine_u8,
@@ -170,3 +174,165 @@ def test_failed_codec_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="no-such-g"):
         resize_bilinear_u8(np.zeros((4, 4, 3), np.uint8), (2, 2))
+
+
+# (source side, destination side): the fast integer path (512, 768 -> 256;
+# 96 -> 48), the area tables (300, 257, 333 -> ...), upscaling (100 -> 256,
+# 37 -> 64) and an equal size (a copy)
+_AREA_CASES = [(512, 256), (768, 256), (96, 48), (300, 256), (257, 64), (333, 256),
+               (100, 256), (37, 64), (256, 256)]
+
+
+@pytest.mark.parametrize("channels", [3, 1, 4])
+@pytest.mark.parametrize("case", _AREA_CASES, ids=lambda c: f"{c[0]}to{c[1]}")
+def test_resize_area_equals_cv2(cv, case, channels):
+    """cv.resize(INTER_AREA) in each of its regimes, noise and smooth
+    images, square (BackgroundCorpus's crops) and not."""
+    s, d = case
+    rng = np.random.default_rng(s * 7 + d + channels)
+    shape = (s, s) if channels == 1 else (s, s, channels)
+    smooth = _smooth(s, s)[..., :1].repeat(4, -1)[..., :channels].reshape(shape)
+    for img in (rng.integers(0, 256, shape, np.uint8), smooth):
+        assert np.array_equal(resize_area_u8(img, (d, d)),
+                              cv.resize(img, (d, d), interpolation=cv.INTER_AREA))
+    img = rng.integers(0, 256, (s, s + 13) + shape[2:], np.uint8)
+    for size in ((d, d + 5), (max(1, d // 3), d)):
+        assert np.array_equal(resize_area_u8(img, size),
+                              cv.resize(img, size, interpolation=cv.INTER_AREA)), size
+
+
+def _bmp_bytes(img_bgr: np.ndarray, bpp: int, top_down: bool, palette=None) -> bytes:
+    """An uncompressed BMP (BITMAPINFOHEADER): 8-bit indices into `palette`
+    ((n, 4) BGRA), or 24-/32-bit BGR(A) pixels."""
+    h, w = img_bgr.shape[:2]
+    pitch = (w * bpp // 8 + 3) & ~3
+    rows = img_bgr if top_down else img_bgr[::-1]
+    body = np.zeros((h, pitch), np.uint8)
+    body[:, :w * bpp // 8] = rows.reshape(h, -1)
+    pal = b"" if palette is None else palette.astype(np.uint8).tobytes()
+    offset = 14 + 40 + len(pal)
+    info = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bpp, 0, body.size,
+                       2835, 2835, 0 if palette is None else len(palette), 0)
+    return (b"BM" + struct.pack("<IHHI", offset + body.size, 0, 0, offset) + info + pal
+            + body.tobytes())
+
+
+@pytest.mark.parametrize("top_down", [False, True], ids=["bottom_up", "top_down"])
+@pytest.mark.parametrize("bpp", [8, 24, 32])
+def test_bmp_decode_equals_cv2(cv, tmp_path, bpp, top_down):
+    """BMP 8-bit palette (a full and a short palette), 24- and 32-bit, both
+    row orders, odd widths (row padding): imread_rgb equals cv.imread."""
+    rng = np.random.default_rng(bpp + top_down)
+    for h, w in ((37, 53), (16, 3), (1, 1)):
+        if bpp == 8:
+            for n in (256, 17):
+                palette = rng.integers(0, 256, (n, 4), np.uint8)
+                idx = rng.integers(0, n, (h, w, 1), np.uint8)
+                path = tmp_path / f"p{n}_{h}x{w}.bmp"
+                path.write_bytes(_bmp_bytes(idx, 8, top_down, palette))
+                want = cv.cvtColor(cv.imread(str(path)), cv.COLOR_BGR2RGB)
+                assert np.array_equal(imread_rgb(path), want), (n, h, w)
+        else:
+            img = rng.integers(0, 256, (h, w, bpp // 8), np.uint8)
+            path = tmp_path / f"c{h}x{w}.bmp"
+            path.write_bytes(_bmp_bytes(img, bpp, top_down))
+            want = cv.cvtColor(cv.imread(str(path)), cv.COLOR_BGR2RGB)
+            assert np.array_equal(imread_rgb(path), want), (h, w)
+
+
+def test_bmp_written_by_cv2_and_refused_variants(cv, tmp_path):
+    """cv.imwrite's own BMPs (24-bit colour, 8-bit grey palette) read back
+    as cv.imread reads them; a compressed or 16-bit BMP raises ValueError,
+    a file of no known format ImageUnreadableError (cv.imread: None)."""
+    rng = np.random.default_rng(5)
+    for img in (rng.integers(0, 256, (45, 31, 3), np.uint8), rng.integers(0, 256, (20, 9), np.uint8)):
+        path = tmp_path / "cv.bmp"
+        assert cv.imwrite(str(path), img)
+        assert np.array_equal(imread_rgb(path), cv.cvtColor(cv.imread(str(path)), cv.COLOR_BGR2RGB))
+    data = bytearray(_bmp_bytes(rng.integers(0, 256, (4, 4, 3), np.uint8), 24, False))
+    for field, value in ((30, 1), (28, 16)):  # compression RLE8; 16 bits a pixel
+        bad = bytearray(data)
+        struct.pack_into("<I" if field == 30 else "<H", bad, field, value)
+        (tmp_path / "bad.bmp").write_bytes(bytes(bad))
+        with pytest.raises(ValueError, match="bad.bmp"):
+            imread_rgb(tmp_path / "bad.bmp")
+    (tmp_path / "junk.bmp").write_bytes(b"\x00" * 64)
+    assert cv.imread(str(tmp_path / "junk.bmp")) is None
+    with pytest.raises(ImageUnreadableError, match="junk.bmp"):
+        imread_rgb(tmp_path / "junk.bmp")
+
+
+def test_png_round_trip(cv, tmp_path):
+    """imwrite's PNG reads back bit for bit, by the port and by cv2."""
+    rng = np.random.default_rng(6)
+    for i, shape in enumerate(((33, 47, 3), (1, 1, 3), (19, 8, 3))):
+        rgb = rng.integers(0, 256, shape, np.uint8)
+        path = tmp_path / f"a{i}.{'PNG' if i else 'png'}"
+        imwrite(path, rgb)
+        assert np.array_equal(imread_rgb(path), rgb)
+        assert np.array_equal(cv.cvtColor(cv.imread(str(path)), cv.COLOR_BGR2RGB), rgb)
+    with pytest.raises(ValueError, match="suffix"):
+        imwrite(tmp_path / "a.tif", rgb)
+    with pytest.raises(ValueError, match="uint8"):
+        imwrite(tmp_path / "g.png", rgb[..., 0])
+
+
+def _jpeg_cases():
+    rng = np.random.default_rng(7)
+    cases = [("noise_256", rng.integers(0, 256, (256, 256, 3), np.uint8)),
+             ("noise_37x53", rng.integers(0, 256, (37, 53, 3), np.uint8)),
+             ("smooth_240x320", _smooth(240, 320)), ("smooth_17x33", _smooth(17, 33)),
+             ("flat_9x300", np.full((9, 300, 3), 255, np.uint8)),
+             ("noise_1x1", rng.integers(0, 256, (1, 1, 3), np.uint8))]
+    for path in sorted(glob.glob(os.path.join(_CODEC, "*.jpg"))):
+        rgb = np.load(path[:-4] + ".npz")["rgb"]
+        cases.append((os.path.basename(path)[:-4], rgb))
+    return cases
+
+
+@pytest.mark.parametrize("name,rgb", _jpeg_cases(), ids=[c[0] for c in _jpeg_cases()])
+def test_jpeg_encode_decodes_as_cv2s(cv, tmp_path, name, rgb):
+    """imwrite's JPEG, decoded by imread_rgb, equals cv.imwrite's JPEG of
+    the same image decoded the same way, bit for bit, on noise (the
+    entropy coder's worst case), smooth and flat images, odd sizes (the
+    edge padding and dummy blocks) and the decoded codec fixtures; the
+    files are equal byte for byte too."""
+    imwrite(tmp_path / "port.jpg", rgb)
+    assert cv.imwrite(str(tmp_path / "cv.jpg"), cv.cvtColor(rgb, cv.COLOR_RGB2BGR))
+    got, want = imread_rgb(tmp_path / "port.jpg"), imread_rgb(tmp_path / "cv.jpg")
+    assert np.array_equal(got, want)
+    assert (tmp_path / "port.jpg").read_bytes() == (tmp_path / "cv.jpg").read_bytes()
+    assert np.array_equal(cv.cvtColor(cv.imread(str(tmp_path / "port.jpg")), cv.COLOR_BGR2RGB), got)
+
+
+def test_jpeg_refuses_what_it_does_not_write():
+    rgb = np.random.default_rng(8).integers(0, 256, (24, 40, 3), np.uint8)
+    for bad in (rgb[..., 0], np.concatenate([rgb, rgb[..., :1]], -1)):
+        with pytest.raises(ValueError, match="RGB"):
+            encode_jpeg(bad)
+    with pytest.raises(TypeError, match="uint8"):
+        encode_jpeg(rgb.astype(np.float32))
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(_CODEC, "area_*.npz"))),
+                         ids=os.path.basename)
+def test_committed_area_fixtures_equal_stored_cv2_resize(path):
+    """The INTER_AREA fixtures chip_smoke.py checks on the card machine."""
+    f = np.load(path)
+    assert np.array_equal(resize_area_u8(f["src"], f["out"].shape[1::-1]), f["out"])
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(_CODEC, "*.bmp"))),
+                         ids=os.path.basename)
+def test_committed_bmp_fixtures_equal_stored_cv2_decode(path):
+    assert np.array_equal(imread_rgb(path), np.load(path[:-4] + ".npz")["rgb"])
+
+
+def test_committed_jpeg_encode_fixtures_equal_cv2s_bytes():
+    """imwrite's JPEG of each stored source equals the stored cv2 file
+    byte for byte (what chip_smoke.py checks where cv2 is missing)."""
+    f = np.load(os.path.join(_CODEC, "jpeg_encode.npz"))
+    n = len([k for k in f.files if k.startswith("src_")])
+    assert n >= 5
+    for i in range(n):
+        assert encode_jpeg(f[f"src_{i}"]) == f[f"jpg_{i}"].tobytes(), i

@@ -9,12 +9,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from renderih_tpu_torch.apps import eval_interhand
+from renderih_tpu_torch.apps import demo, eval_interhand
 from renderih_tpu_torch.config import Config
 from renderih_tpu_torch.eval import evaluator
 from renderih_tpu_torch import serve_http
 from renderih_tpu_torch.serve import InferenceEngine, resolve_device
-from renderih_tpu_torch.tools import synth_gen
+from renderih_tpu_torch.tools import compute_maskiou, synth_gen, validate_bf16_decoder
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "renderih_tpu", "cv2", "PIL"}
@@ -57,7 +57,11 @@ def test_importing_the_port_loads_no_jax():
             "renderih_tpu_torch.tools.dataset_gen.interhand_gen, "
             "renderih_tpu_torch.tools.dataset_gen.handdict_gen, "
             "renderih_tpu_torch.tools.dataset_gen.tzionas_gen, "
-            "renderih_tpu_torch.tools.dataset_gen.other_datasets_gen; "
+            "renderih_tpu_torch.tools.dataset_gen.other_datasets_gen, "
+            "renderih_tpu_torch.render.pathtrace, renderih_tpu_torch.apps.demo, "
+            "renderih_tpu_torch.tools.compute_maskiou, "
+            "renderih_tpu_torch.tools.validate_bf16_decoder, "
+            "renderih_tpu_torch.tools.summarize_run; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -106,3 +110,29 @@ def test_serve_http_without_device_runs_on_the_card_or_raises():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_http.main(["--host", "127.0.0.1", "--port", "0"])
+
+
+def test_serve_http_decoder_bf16_without_device_runs_on_the_card_or_raises():
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_http.main(["--host", "127.0.0.1", "--port", "0", "--decoder_bf16"])
+
+
+def test_rendering_apps_without_device_run_on_the_card_or_raise(tmp_path):
+    """`apps.demo`, `tools.compute_maskiou` and `tools.validate_bf16_decoder`
+    (no --device) run on the card; without one they raise before any
+    output is written."""
+    parsers = {"demo": demo.build_parser().parse_args([]),
+               "maskiou": compute_maskiou.build_parser().parse_args(["--data", "d", "--out", "o"]),
+               "bf16": validate_bf16_decoder.build_parser().parse_args([])}
+    if torch.cuda.is_available():
+        assert all(a.device == "cuda" for a in parsers.values())
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo.main(["--img_path", str(tmp_path), "--save_path", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compute_maskiou.main(["--data", str(tmp_path), "--out", str(tmp_path / "iou.npy")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        validate_bf16_decoder.main(["--steps", "1"])
+    assert not list(tmp_path.iterdir())

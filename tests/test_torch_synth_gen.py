@@ -79,6 +79,26 @@ def test_prior_gan_refines_with_the_shipped_discriminator(tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("flag", [["--backgrounds", "bg_dir"], ["--renderer", "pathtrace"]])
-def test_unported_options_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synth_gen.main(["--out", str(tmp_path), "--device", "cpu", *flag])
+def test_unported_options_raise(tmp_path, monkeypatch, flag):
+    """The two options that raised until the rendering extras were ported
+    now run: one sample each on the CPU (the path tracer at 64², one sample
+    a pixel, no bounce; tests/test_torch_pathtrace.py runs it at 256² and
+    holds it, and tests/test_torch_backgrounds.py the corpus, against the
+    JAX package)."""
+    if flag[0] == "--backgrounds":
+        bg_dir = tmp_path / "bg_dir"
+        bg_dir.mkdir()
+        rng = np.random.default_rng(0)
+        from renderih_tpu_torch.data.image_io import imwrite
+
+        imwrite(bg_dir / "a.png", rng.integers(0, 256, (300, 200, 3), np.uint8))
+        flag = ["--backgrounds", str(bg_dir)]
+    else:
+        flag = flag + ["--spp", "1", "--bounces", "0"]
+        monkeypatch.setattr(synth_gen, "IMG_SIZE", 64)
+    size = synth_gen.IMG_SIZE
+    out = tmp_path / "out"
+    result = synth_gen.main(["--out", str(out), "--n", "1", "--batch", "1", "--device", "cpu",
+                             *flag])
+    img = np.memmap(out / "train_images.u8", np.uint8, "r", shape=(1, size, size, 3))
+    assert result["n"] == 1 and img.std() > 5
