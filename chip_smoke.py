@@ -10,15 +10,16 @@ line:
 
 1. Build: compiles the port's CUDA kernels from `renderih_tpu_torch/csrc/`
    with nvcc for sm_90a (one nvcc per source, in parallel) and prints
-   `-Xptxas -v` (registers, shared memory, spills); B2's `conv3x3_wgmma`,
-   B1's `mha_mma_kernel` and B3's `sdf_kernel` must spill nothing; each
+   `-Xptxas -v` (registers, shared memory, spills); B2's `conv3x3_wgmma`
+   and `conv3x3_tf32x3`, B1's `mha_mma_kernel` and B3's `sdf_kernel` must
+   spill nothing; each
    B1 instance's registers and dynamic shared memory. Then the card's
    name and power limit.
 2. Kernels against their plain versions on the card, at every shape the
    flagship path gives them at batch 256: B2 (3x3 conv) in bf16 and f32,
    B1 (fused attention) in f32 and bf16. B2 must take its `wgmma` route in
-   bf16 and its `simt` route in f32. Each line has max|Δ| and its
-   tolerance, the kernel's time (CUDA events after warm-up; for B1 and
+   bf16 and its `tf32x3` route in f32. Each line has max|Δ| and its
+   tolerance (and its worst element's share of it), the kernel's time (CUDA events after warm-up; for B1 and
    SDPA beside it the device time of 20 calls replayed from a CUDA graph,
    since B1's wrapper costs the host more than its kernel costs the card
    at the short shapes, and also B1's eager time, host included), the
@@ -27,10 +28,16 @@ line:
    the bound: the largest of the bytes moved (inputs read once, output
    written once) over 3.35 TB/s, the FLOPs over the peak of the unit that
    does them (H100 SXM data sheet: 989 TFLOP/s bf16 and 495 TF32 on tensor
-   cores, 67 f32 on CUDA cores; B1 runs on tensor cores, B2's f32 and B3
-   on CUDA cores) and, for B1, the exponentials over the MUFU rate (16 a
-   clock per SM at 1.98 GHz). B1's f32 lines also print the bound of PR
-   1-3's yardstick, its FLOPs over the CUDA-core f32 peak.
+   cores, 67 f32 on CUDA cores; B1 and B2 are held to the tensor cores'
+   peak for their dtype, f32 to one TF32 pass on every route, though
+   3xTF32 runs three and `simt` runs on CUDA cores; B3 to the CUDA
+   cores') and, for B1, the exponentials over the MUFU rate (16 a
+   clock per SM at 1.98 GHz). B1's and B2's f32 lines also print the
+   CUDA-core yardstick, the FLOPs over the CUDA-core f32 peak;
+   B2's f32 lines cuDNN with TF32 on (PyTorch's default: a less accurate
+   function, not the yardstick) and `conv3x3_simt`'s time on the same
+   input one float off 16-byte alignment (which the launcher sends to the
+   CUDA-core kernel), held too.
 3. The flagship path: `Config()` (ResNet-50, bf16 encoder, f32 decoder)
    on synthetic assets with seeded random weights. First B2 in bf16 (on
    `wgmma`) and B1 in f32 at every shape of a forward at each of the
@@ -65,7 +72,7 @@ line:
    the final parameters, objective and weighted terms loosely (the
    objective is piecewise smooth; `refine_parity_phase` states why).
 7. B2's backward at every training shape (batch 64, bf16 and f32): dx
-   through B2 (`wgmma` in bf16, `simt` in f32) against the plain autograd
+   through B2 (`wgmma` in bf16, `tf32x3` in f32) against the plain autograd
    and against cuDNN's `conv2d_input` (the library yardstick) within
    `CONV_TOL`, dw (cuDNN `conv2d_weight`) against the plain one; the
    forward, dx (with its weight flip), plain, cuDNN and dw device times
@@ -345,7 +352,23 @@ line:
    `tools.validate_bf16_decoder` at `BF16_STEPS` steps, batch 64, on the
    card: exactly 26 B2 a training step (all `wgmma`, no B1) and 13 B2 and
    24 B1 in each of its 4 eval forwards; its JSON line.
-28. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
+28. The upstream recipe's precision at full width: B2's forward and dx in
+   f32 at every training shape at batch 128, held and timed as phase 7.
+   Then `apps.train --cfg configs/probe_f32.yaml --synthetic --synth_n 256
+   --steps 12` (flagship `Config()`, the whole encoder in f32, batch 128;
+   checkpoints under build/; stock convolutions in TF32 by PyTorch's
+   default, B2 at float32 accuracy): exactly 26 B2 launches a step, all
+   on `tf32x3`, no B1; every loss term finite; images/s (the median of
+   steps 4-12), ms a step and B2's share of it (its CUDA-graph device time
+   a step over the step's wall time); 10 AdamW steps on one fixed batch
+   lower the loss (phase 8's check); with `--profile`, one step's device
+   time by kernel. Then an f32 `InferenceEngine` (TF32 off) serving 256
+   images as `serve_phase` does, 13 B2 a forward, all `tf32x3`. Then
+   HRNet-W18 in f32, whose 18- and 36-channel branches no tensor-core
+   route takes: its B2 at every shape of a forward at 256 (phase 2's
+   f32 rows, `simt` where the launcher's rule says) and served, each B2
+   launch on the route its shape's rule gives.
+29. The result: a `{"kernels": [...]}` line (B1/B2 per flagship forward at
    batch 256 in the flagship's dtypes, B2 per training step at batch 64
    and per recipe training step at batch 128, B3 per refined sample; B1
    per ViT-B forward in its dtypes, B2 per HRNet-W32 forward and training
@@ -356,8 +379,10 @@ line:
    are phase 7's bf16 rows, the same shapes at the same batch, as the
    `train` row's are; B3 per refined sample of phase 23's corpus run and
    B2 per training step of phase 27's, their times phase 4's and phase
-   7's rows), and as the last line
-   `{"ok": true, "device": {...}}`.
+   7's rows; B2 in f32: per training step of phase 28's run at batch 128
+   and per forward of its engine at 256 on `tf32x3`, and per HRNet-W18
+   forward on `simt`, its `simt` launches; each B2 entry names its CUDA
+   kernel), and as the last line `{"ok": true, "device": {...}}`.
 
 With `--bf16_ab STEPS` the script runs only the trained bf16-decoder A/B
 (`validate_bf16_decoder` at STEPS steps, batch 64, 256 samples) and the
@@ -367,7 +392,9 @@ its largest value, and the vertices' in mm).
 
 All f32 comparisons run with TF32 off in cuDNN and cuBLAS
 (`torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32
-= False`).
+= False`). Every f32 run of a ResNet or HRNet-W32 on the card (phases 3,
+9, 10, 13, 16-18 and 21's card-against-CPU checks, 28) must have every B2
+launch on `tf32x3`.
 """
 
 from __future__ import annotations
@@ -436,6 +463,9 @@ DEMO_IMAGES, DEMO_CPU_IMAGES = 8, 2  # phase 25: images on the card, and on the 
 PT_N, PT_SPP, PT_BOUNCES = 8, 8, 2  # phase 26: synth_gen --renderer pathtrace at 256²
 PT_PARITY = (64, 2, 2, 2)  # phase 26 card vs CPU: size, scenes, spp, bounces
 BF16_STEPS = 100  # phase 27: validate_bf16_decoder's training steps at batch 64
+F32_YAML = "configs/probe_f32.yaml"  # phase 28: the upstream recipe's float32, batch 128
+F32_TRAIN_STEPS = 12
+F32_SIMT_ENCODER = "hrnet_w18"  # phase 28: 18- and 36-channel branches, B2 on simt
 
 
 def _gpu_line() -> str:
@@ -510,8 +540,8 @@ def _check(name: str, got, want, atol: float, rtol: float) -> float:
     return max_err
 
 
-NO_SPILLS = {"conv3x3": "conv3x3_wgmma", "fused_attention": "mha_mma_kernel",
-             "sdf": "sdf_kernel"}  # source: kernel
+NO_SPILLS = {"conv3x3": ("conv3x3_wgmma", "conv3x3_tf32x3"),
+             "fused_attention": ("mha_mma_kernel",), "sdf": ("sdf_kernel",)}  # source: kernels
 
 
 def check_spills(logs: dict) -> None:
@@ -522,18 +552,21 @@ def check_spills(logs: dict) -> None:
         for line in log.splitlines():
             if "Function properties for" in line:
                 fn = line.rsplit(" ", 1)[-1]
-            elif "spill stores" in line and NO_SPILLS.get(name, "?") in fn:
-                seen.add(name)
-                # "N bytes stack frame, N bytes spill stores, N bytes spill loads"
-                if any(int(tok) for tok in line.replace(",", " ").split()[3:]
-                       if tok.isdigit()):
-                    spills.append(f"{name}: {fn}: {line.strip()}")
+            elif "spill stores" in line:
+                for kernel in NO_SPILLS.get(name, ()):
+                    if kernel not in fn:
+                        continue
+                    seen.add(kernel)
+                    # "N bytes stack frame, N bytes spill stores, N bytes spill loads"
+                    if any(int(tok) for tok in line.replace(",", " ").split()[3:]
+                           if tok.isdigit()):
+                        spills.append(f"{name}: {fn}: {line.strip()}")
     if spills:
         raise AssertionError("ptxas spills:\n" + "\n".join(spills))
-    missing = [NO_SPILLS[n] for n in NO_SPILLS if n in logs and n not in seen]
+    missing = [k for n in NO_SPILLS if n in logs for k in NO_SPILLS[n] if k not in seen]
     if missing:
         raise AssertionError(f"no ptxas report for {missing}")
-    print(f"[build] no spills in {[NO_SPILLS[n] for n in sorted(seen)]}", flush=True)
+    print(f"[build] no spills in {sorted(seen)}", flush=True)
 
 
 def print_mha_resources(log: str) -> None:
@@ -564,6 +597,17 @@ def _routes() -> dict:
     from renderih_tpu_torch.kernels import conv3x3
 
     return {name: c.value for name, c in conv3x3.routes.items()}
+
+
+def _check_f32_routes(label: str, before: dict, has_b2: bool = True) -> int:
+    """An f32 run on the card since `before` (a `_routes()`): every B2
+    launch on `tf32x3`, none on `simt` or `wgmma`, and some if the model
+    has B2 (`has_b2`). Returns the `tf32x3` launches."""
+    delta = {k: v - before[k] for k, v in _routes().items()}
+    if delta["simt"] or delta["wgmma"] or bool(delta["tf32x3"]) != has_b2:
+        raise AssertionError(f"{label}: B2 routes {delta} in an f32 run; expected every launch "
+                             f"on tf32x3" + ("" if has_b2 else " (none: no B2 in this model)"))
+    return delta["tf32x3"]
 
 
 _SHAPES: dict = {}
@@ -623,22 +667,40 @@ def shape_counts(cfg, assets, kernel: str) -> dict:
     return out
 
 
-def hold_conv(x, w, label: str):
-    """B2 on (x, w) against its plain version at `CONV_TOL`, on the route
-    its dtype takes (`wgmma` in bf16, `simt` in f32): (y, max|Δ|, route)."""
+def path_routes(cfg, assets) -> dict:
+    """B2 launches a forward of `cfg`'s model on each route."""
+    import torch
+
+    from renderih_tpu_torch.kernels import conv3x3
+
+    out = {"simt": 0, "wgmma": 0, "tf32x3": 0}
+    for _, cin, cout, dname, n in kernel_shapes(cfg, assets)["conv3x3"]:
+        out[conv3x3.route(getattr(torch, dname), cin, cout)] += n
+    return out
+
+
+def hold_conv(x, w, label: str, route: str | None = None):
+    """B2 on (x, w) against its plain version at `CONV_TOL`, on `route`
+    (default: the one the launcher's rule gives aligned tensors,
+    `conv3x3.route`): (y, max|Δ|, route, the worst element's share of its
+    limit)."""
     import torch
 
     from renderih_tpu_torch.kernels import conv3x3
 
     dname = str(x.dtype).split(".")[1]
-    route = "wgmma" if x.dtype == torch.bfloat16 else "simt"
+    route = route or conv3x3.route(x.dtype, x.shape[3], w.shape[3])
     before = _routes()
     y = conv3x3.conv3x3_same(x, w)
     torch.cuda.synchronize()
     want_routes = dict(before, **{route: before[route] + 1})
     if _routes() != want_routes:
         raise AssertionError(f"{label}: routes {_routes()}, expected {want_routes}")
-    return y, _check(label, y, conv3x3.conv3x3_reference(x, w), *CONV_TOL[dname]), route
+    atol, rtol = CONV_TOL[dname]
+    ref = conv3x3.conv3x3_reference(x, w).float()
+    err = _check(label, y, ref, atol, rtol)
+    share = float(((y.float() - ref).abs() / (atol + rtol * ref.abs())).max())
+    return y, err, route, share
 
 
 def hold_mha(q, k, v, label: str):
@@ -685,10 +747,11 @@ def hold_path_kernels(cfg, assets, batch: int, seed: int) -> dict:
     return worst
 
 
-def kernel_phase(cfg, assets, skip: dict | None = None, label: str = "flagship") -> dict:
-    """B2 and B1 at every shape of a forward of `cfg` at batch `BATCH`, in
-    bf16 and f32, held and timed (the module docstring, phase 2); shapes
-    in `skip` ({kernel: set of shapes}, measured already) are left out."""
+def kernel_phase(cfg, assets, skip: dict | None = None, label: str = "flagship",
+                 dtypes: tuple = ("bfloat16", "float32")) -> dict:
+    """B2 and B1 at every shape of a forward of `cfg` at batch `BATCH`, B2
+    in `dtypes`, held and timed (the module docstring, phase 2); shapes in
+    `skip` ({kernel: set of shapes}, measured already) are left out."""
     import torch
     import torch.nn.functional as F
 
@@ -699,8 +762,9 @@ def kernel_phase(cfg, assets, skip: dict | None = None, label: str = "flagship")
     rows = {"conv3x3": [], "fused_mha": []}
     skip = skip or {}
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (getattr(torch, d) for d in dtypes):
         dname = str(dtype).split(".")[1]
+        f32 = dtype == torch.float32
         atol, rtol = CONV_TOL[dname]
         for (side, cin, cout), per_fwd in shape_counts(cfg, assets, "conv3x3").items():
             if (side, cin, cout) in skip.get("conv3x3", ()):
@@ -708,26 +772,64 @@ def kernel_phase(cfg, assets, skip: dict | None = None, label: str = "flagship")
             x = torch.randn(BATCH, side, side, cin, device=dev, generator=g).to(dtype)
             w = (torch.randn(3, 3, cin, cout, device=dev, generator=g)
                  / (9 * cin) ** 0.5).to(dtype)
-            y, err, route = hold_conv(x, w, f"conv3x3 {dname} {side}²x{cin}->{cout}")
+            y, err, route, share = hold_conv(x, w, f"conv3x3 {dname} {side}²x{cin}->{cout}")
             x_lib = x.permute(0, 3, 1, 2)  # NCHW view, channels_last
             w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             n_bytes = (x.numel() + w.numel() + y.numel()) * x.element_size()
             flops = 2 * BATCH * side * side * cin * cout * 9
+            conv_lib = lambda: F.conv2d(x_lib, w_lib, padding=1)
+            # f32 on either route: the TF32 tensor-core yardstick, as B1's
+            bound = _bound(n_bytes, flops, "tfloat32" if f32 else dname)
             row = dict(
                 dtype=dname, shape=[BATCH, side, side, cin, cout], launches_per_forward=per_fwd,
                 route=route,
-                max_abs_err=err, atol=atol, rtol=rtol,
+                max_abs_err=err, atol=atol, rtol=rtol, limit_share=share,
                 ms=_time_ms(lambda: conv3x3.conv3x3_same(x, w)),
                 plain_ms=_time_ms(lambda: conv3x3.conv3x3_reference(x, w)),
-                library_ms=_time_ms(lambda: F.conv2d(x_lib, w_lib, padding=1)),
-                **_bound(n_bytes, flops, dname))
+                library_ms=_time_ms(conv_lib), **bound)
+            extra = ""
+            if f32:
+                # the CUDA-core yardstick, FLOPs over the f32 FMA peak; cuDNN
+                # in TF32 (PyTorch's default), a less accurate function, not
+                # the yardstick; and `simt` on this input: on a tf32x3 row the
+                # same input one float off 16-byte alignment, which the
+                # launcher sends to `simt` (phase 2's comparison of the two
+                # routes in one run), on a simt row the row itself
+                row["cuda_core_bound_ms"] = _bound(n_bytes, flops, "float32")["bound_ms"]
+                with _tf32_defaults():
+                    row["library_tf32_ms"] = _time_ms(conv_lib)
+                if route == "simt":
+                    row["simt_max_abs_err"], row["simt_ms"] = err, row["ms"]
+                else:
+                    x_off = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+                    x_off.copy_(x)
+                    row["simt_max_abs_err"] = hold_conv(
+                        x_off, w, f"conv3x3 f32 misaligned {side}²x{cin}->{cout}",
+                        route="simt")[1]
+                    row["simt_ms"] = _time_ms(lambda: conv3x3.conv3x3_same(x_off, w), iters=5)
+                    del x_off
+                extra = (f" cuda_core_bound_ms={row['cuda_core_bound_ms']:.4f} "
+                         f"library_tf32_ms={row['library_tf32_ms']:.4f} (cuDNN, TF32: less "
+                         f"accurate) simt_ms={row['simt_ms']:.4f} ("
+                         + ("this row" if route == "simt" else "misaligned input")
+                         + f", max|Δ| {row['simt_max_abs_err']:.3e})")
             rows["conv3x3"].append(row)
             print(f"[B2] conv3x3 {dname} x({BATCH},{side},{side},{cin}) w(3,3,{cin},{cout}): "
-                  f"max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g})  "
+                  f"max|Δ|={err:.3e} (atol {atol:g}, rtol {rtol:g}; worst element at "
+                  f"{share:.3f} of its limit)  "
                   f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-                  f"({row['bound_by']})  launches/forward={per_fwd} route={route}", flush=True)
+                  f"({row['bound_by']}){extra}  launches/forward={per_fwd} route={route}",
+                  flush=True)
             del x, w, y, x_lib, w_lib
+        fwd = [r for r in rows["conv3x3"] if r["dtype"] == dname]
+        if fwd:
+            total = {key: sum(r[key] * r["launches_per_forward"] for r in fwd)
+                     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "cuda_core_bound_ms",
+                                 "library_tf32_ms", "simt_ms") if key in fwd[0]}
+            print(f"[B2] conv3x3 {dname} per {label} forward at {BATCH}, these shapes "
+                  f"({sum(r['launches_per_forward'] for r in fwd)} launches): "
+                  + ", ".join(f"{key} {val:.4f}" for key, val in total.items()), flush=True)
 
     rows["fused_mha"] = mha_rows(shape_counts(cfg, assets, "fused_mha"), g,
                                  skip.get("fused_mha", ()), label)
@@ -849,8 +951,10 @@ def parity_phase(cfg, assets, tag: str = "parity") -> dict:
     rng = np.random.default_rng(1)
     size = cfg.model.img_size
     images = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    before = _routes()
     gpu = InferenceEngine(cfg32, assets=assets, device=DEVICE, buckets=(n,), seed=0)
     out_gpu = gpu.predict(images)
+    b2 = _check_f32_routes(tag, before, per_forward(cfg32, assets)["conv3x3"] > 0)
     cpu = InferenceEngine(cfg32, assets=assets, device="cpu", buckets=(n,), seed=0)
     out_cpu = cpu.predict(images)
     errs = {}
@@ -860,8 +964,8 @@ def parity_phase(cfg, assets, tag: str = "parity") -> dict:
         errs[key] = rel
         if not rel <= PATH_RTOL:
             raise AssertionError(f"{key}: card vs CPU rel max|Δ| {rel:.3e} > {PATH_RTOL:g}")
-    print(f"[{tag}] {cfg.model.encoder} f32, TF32 off, {n} images: card (kernels) vs CPU "
-          f"(plain), "
+    print(f"[{tag}] {cfg.model.encoder} f32, TF32 off, {n} images: card (kernels; {b2} B2 "
+          f"launches, all tf32x3) vs CPU (plain), "
           f"max|Δ| / max|ref| per output: "
           + ", ".join(f"{k}={v:.2e}" for k, v in errs.items())
           + f" (limit {PATH_RTOL:g})", flush=True)
@@ -1138,9 +1242,9 @@ def conv_backward_phase(cfg, assets, batch: int = TRAIN_BATCH,
     for dtype in (getattr(torch, d) for d in dtypes):
         dname = str(dtype).split(".")[1]
         atol, rtol = CONV_TOL[dname]
-        route = "wgmma" if dtype == torch.bfloat16 else "simt"
         for (side, c, cout), per_fwd in shape_counts(cfg, assets, "conv3x3").items():
             assert c == cout, (side, c, cout)
+            route = conv3x3.route(dtype, c, c)
             shape = (batch, side, side, c)
             x = torch.randn(*shape, device=dev, generator=g).to(dtype)
             w = (torch.randn(3, 3, c, c, device=dev, generator=g) / (9 * c) ** 0.5).to(dtype)
@@ -1163,6 +1267,8 @@ def conv_backward_phase(cfg, assets, batch: int = TRAIN_BATCH,
             err_dx = _check(f"{name} dx vs plain", xk.grad, xp.grad, atol, rtol)
             err_lib = _check(f"{name} dx vs cuDNN", xk.grad, dx_lib.permute(0, 2, 3, 1), atol,
                              rtol)
+            share = float(((xk.grad.float() - xp.grad.float()).abs()
+                           / (atol + rtol * xp.grad.float().abs())).max())
             # dw sums B·H·W products: relative to its largest element
             ref = wp.grad.float()
             err_dw = float((wk.grad.float() - ref).abs().max() / ref.abs().max())
@@ -1175,6 +1281,7 @@ def conv_backward_phase(cfg, assets, batch: int = TRAIN_BATCH,
                 dtype=dname, shape=[batch, side, side, c, c],
                 launches_per_step=2 * per_fwd, route=route,
                 max_abs_err=max(err_dx, err_lib), dw_rel_err=err_dw, atol=atol, rtol=rtol,
+                limit_share=share,
                 fwd_ms=_graph_ms(lambda: conv3x3.conv3x3_same(x, w)),
                 dx_ms=_graph_ms(dx),
                 eager_fwd_ms=_time_ms(lambda: conv3x3.conv3x3_same(x, w)),
@@ -1186,17 +1293,22 @@ def conv_backward_phase(cfg, assets, batch: int = TRAIN_BATCH,
                     nchw(x).shape, w_oihw, nchw(gy), padding=1)),
                 dw_ms=_graph_ms(lambda: F.grad.conv2d_weight(
                     nchw(x), w_oihw.shape, nchw(gy), padding=1)),
-                **_bound(n_bytes, flops, dname))
+                **_bound(n_bytes, flops, "tfloat32" if dname == "float32" else dname))
+            if dname == "float32":  # as phase 2's f32 rows
+                row["cuda_core_bound_ms"] = _bound(n_bytes, flops, "float32")["bound_ms"]
             rows.append(row)
             print(f"[B2-bwd] {name} x({batch},{side},{side},{c}): dx max|Δ| "
-                  f"{err_dx:.3e} vs plain, {err_lib:.3e} vs cuDNN conv2d_input (atol {atol:g}, "
+                  f"{err_dx:.3e} vs plain (worst element at {share:.3f} of its limit), "
+                  f"{err_lib:.3e} vs cuDNN conv2d_input (atol {atol:g}, "
                   f"rtol {rtol:g}); dw (cuDNN) rel {err_dw:.2e}  device ms (CUDA graph): "
                   f"fwd {row['fwd_ms']:.4f}, dx {row['dx_ms']:.4f} (with the weight flip), "
                   f"plain fwd/dx {row['plain_fwd_ms']:.4f}/{row['plain_dx_ms']:.4f}, cuDNN "
                   f"fwd/dx {row['library_fwd_ms']:.4f}/{row['library_dx_ms']:.4f}, dw "
                   f"{row['dw_ms']:.4f}; eager fwd/dx {row['eager_fwd_ms']:.4f}/"
                   f"{row['eager_dx_ms']:.4f}; bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-                  f"each; launches/step={2 * per_fwd} route={route}", flush=True)
+                  + (f"cuda_core_bound_ms={row['cuda_core_bound_ms']:.4f} "
+                     if "cuda_core_bound_ms" in row else "")
+                  + f"each; launches/step={2 * per_fwd} route={route}", flush=True)
             del x, w, gy, xk, wk, xp, wp, dx_lib
         per_step = [r for r in rows if r["dtype"] == dname]
         tot = lambda key: sum(r[key] * r["launches_per_step"] / 2 for r in per_step)
@@ -1259,7 +1371,6 @@ def _state_gap(path_a: str, path_b: str, path_before: str) -> dict:
 
 def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     """The training path on the card (see the module docstring, phase 8)."""
-    import copy
     import shutil
     import tempfile
 
@@ -1267,12 +1378,7 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
     import torch
 
     from renderih_tpu_torch.apps import train as train_app
-    from renderih_tpu_torch.data.interhand import PackedInterHand
-    from renderih_tpu_torch.data.pipeline import device_augment
     from renderih_tpu_torch.kernels import _build, conv3x3, fused_attention, sdf
-    from renderih_tpu_torch.models import init_model
-    from renderih_tpu_torch.train.state import create_train_state
-    from renderih_tpu_torch.train.trainer import make_train_step
 
     per_fwd_b2, per_fwd_b1 = per_forward(cfg, assets).values()  # 13, 24
     per_step = 2 * per_fwd_b2  # 13 forward + 13 dx
@@ -1306,7 +1412,7 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
               f"forwards, launches {launches} (expected {want}), B2 routes {routes}", flush=True)
         if launches != want:
             raise AssertionError(f"kernel launches {launches} != {want}")
-        if routes != {"simt": 0, "wgmma": want["conv3x3"]}:
+        if routes != {"simt": 0, "wgmma": want["conv3x3"], "tf32x3": 0}:
             raise AssertionError(f"B2 routes {routes}: every launch must be wgmma")
         for step, terms in a["logged"]:
             if not all(np.isfinite(v) for v in terms.values()) or terms["skipped_nonfinite"]:
@@ -1371,24 +1477,7 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
               f"(median of steps {train_app.WARMUP_STEPS + 1}-{n_steps}; each step ends at its "
               f"NaN-guard sync) on {gpu_line}", flush=True)
 
-        # 10 steps on one fixed batch lower the loss
-        fcfg = copy.deepcopy(cfg)
-        fcfg.train.warmup_epochs, fcfg.train.lr = 0, 1e-3
-        data = PackedInterHand.load(f"{root}/straight/_synth_data", "train")
-        raw = {k: torch.from_numpy(v).to(DEVICE)
-               for k, v in data.batch(np.arange(cfg.train.batch_size)).items()}
-        batch = device_augment(raw, torch.Generator(device=DEVICE).manual_seed(0),
-                               img_size=cfg.model.img_size)
-        model = init_model(fcfg, assets, torch.Generator().manual_seed(0))
-        state = create_train_state(fcfg, model.to(DEVICE, memory_format=torch.channels_last),
-                                   steps_per_epoch=1000)
-        step = make_train_step(fcfg, assets, 1000, DEVICE)
-        losses = [float(step(state, batch, torch.Generator(device=DEVICE).manual_seed(1))["total"])
-                  for _ in range(FIXED_BATCH_STEPS)]
-        print(f"[train] {FIXED_BATCH_STEPS} AdamW steps (lr 1e-3, no warmup) on one fixed batch: "
-              f"loss {' '.join(f'{v:.2f}' for v in losses)}", flush=True)
-        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-            raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
+        losses, state, step, batch = _fixed_batch_run(cfg, assets, f"{root}/straight", "train")
         result = dict(steps=n_steps, launches=launches, launches_per_step=per_step,
                       routes=routes, images_per_s=ips, eval_summary=ev["summary"],
                       eval_seconds=ev["seconds"],
@@ -1400,8 +1489,113 @@ def train_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
             result["profile"] = profile_phase(
                 f"one training step at batch {cfg.train.batch_size}",
                 lambda: float(step(state, batch)["total"]))
-    del state, model, batch, raw
+    del state, batch
     torch.cuda.empty_cache()
+    return result
+
+
+def _fixed_batch_run(cfg, assets, run_dir: str, tag: str) -> tuple:
+    """`FIXED_BATCH_STEPS` AdamW steps (lr 1e-3, no warmup) of `cfg` from
+    seed-0 weights on the first batch of the synthetic split an `apps.train`
+    run left in `run_dir`: the loss must be finite and fall. Returns (losses,
+    state, step, batch), the last three for a profile of one more step."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.data.interhand import PackedInterHand
+    from renderih_tpu_torch.data.pipeline import device_augment
+    from renderih_tpu_torch.models import init_model
+    from renderih_tpu_torch.train.state import create_train_state
+    from renderih_tpu_torch.train.trainer import make_train_step
+
+    fcfg = copy.deepcopy(cfg)
+    fcfg.train.warmup_epochs, fcfg.train.lr = 0, 1e-3
+    data = PackedInterHand.load(f"{run_dir}/_synth_data", "train")
+    raw = {k: torch.from_numpy(v).to(DEVICE)
+           for k, v in data.batch(np.arange(cfg.train.batch_size)).items()}
+    batch = device_augment(raw, torch.Generator(device=DEVICE).manual_seed(0),
+                           img_size=cfg.model.img_size)
+    model = init_model(fcfg, assets, torch.Generator().manual_seed(0))
+    state = create_train_state(fcfg, model.to(DEVICE, memory_format=torch.channels_last),
+                               steps_per_epoch=1000)
+    step = make_train_step(fcfg, assets, 1000, DEVICE)
+    losses = [float(step(state, batch, torch.Generator(device=DEVICE).manual_seed(1))["total"])
+              for _ in range(FIXED_BATCH_STEPS)]
+    print(f"[{tag}] {FIXED_BATCH_STEPS} AdamW steps (lr 1e-3, no warmup) on one fixed batch: "
+          f"loss {' '.join(f'{v:.2f}' for v in losses)}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{tag}: loss did not fall on a fixed batch: {losses}")
+    return losses, state, step, batch
+
+
+def f32_train_phase(assets, gpu_line: str, profile: bool = False) -> dict:
+    """The upstream recipe's precision at full width (see the module
+    docstring, phase 28): B2's forward and dx in float32 at the recipe's
+    batch, `apps.train` on `F32_YAML`, the fixed-batch check, an f32 engine
+    on it, and `F32_SIMT_ENCODER` served in f32 (B2's `simt` route)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from renderih_tpu_torch.apps import train as train_app
+    from renderih_tpu_torch.config import load_config
+    from renderih_tpu_torch.kernels import _build
+
+    cfg = load_config(F32_YAML)
+    batch = cfg.train.batch_size
+    per_step = 2 * per_forward(cfg, assets)["conv3x3"]  # 13 forward + 13 dx
+    bwd = conv_backward_phase(cfg, assets, batch=batch, dtypes=("float32",), seed=28)
+    b2_ms = sum((r["fwd_ms"] + r["dx_ms"]) * r["launches_per_step"] / 2 for r in bwd)
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)  # build/, git-ignored
+    # stock convolutions in TF32 as PyTorch has it by default (what a user
+    # of apps.train gets); B2 stays at float32 accuracy
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root, _tf32_defaults():
+        yaml = _train_yaml(cfg, root, "f32", log_every=1, eval_every=1000, save_gap=1000)
+        for counter in _counters():
+            counter.reset()
+        run = train_app.main(["--cfg", yaml, "--synthetic", "--synth_n", str(TRAIN_SYNTH_N),
+                              "--steps", str(F32_TRAIN_STEPS), "--device", DEVICE])
+        launches = _launches()
+        n_steps = run["final_step"]
+        want = {"conv3x3": per_step * n_steps, "fused_mha": 0, "sdf_grid": 0}
+        _check_run_launches("f32 training", launches, want,
+                            routes={"simt": 0, "wgmma": 0, "tf32x3": want["conv3x3"]})
+        for step_i, terms in run["logged"]:
+            if not all(np.isfinite(v) for v in terms.values()) or terms["skipped_nonfinite"]:
+                raise AssertionError(f"f32 training step {step_i}: terms {terms}")
+        first, last = run["logged"][0][1], run["logged"][-1][1]
+        step_ms = 1e3 * float(np.median(run["step_seconds"][train_app.WARMUP_STEPS:]))
+        print(f"[f32-train] apps.train --cfg {F32_YAML} --synthetic --synth_n {TRAIN_SYNTH_N} "
+              f"--steps {F32_TRAIN_STEPS} ({cfg.model.encoder}, {cfg.train.precision}, batch "
+              f"{batch}; stock convolutions in TF32, PyTorch's default): {n_steps} steps, "
+              f"launches {launches} ({per_step} B2 a step, all on tf32x3, no B1); every term "
+              f"finite (total {first['total']:.4f} -> {last['total']:.4f}); "
+              f"{run['images_per_s']:.1f} images/s, {step_ms:.1f} ms a step (median of steps "
+              f"{train_app.WARMUP_STEPS + 1}-{n_steps}); B2 {b2_ms:.2f} ms of device time a step "
+              f"(CUDA graphs, the rows above) = {100 * b2_ms / step_ms:.1f}% of it, on "
+              f"{gpu_line}", flush=True)
+        losses, state, step, fixed = _fixed_batch_run(cfg, assets, f"{root}/f32", "f32-train")
+        result = dict(steps=n_steps, launches=launches, routes=_routes(),
+                      images_per_s=run["images_per_s"], step_ms=step_ms, b2_step_ms=b2_ms,
+                      b2_share=b2_ms / step_ms, first=first, last=last,
+                      fixed_batch_losses=losses, conv_backward=bwd)
+        if profile:
+            result["profile"] = profile_phase(f"one f32 training step at batch {batch}",
+                                              lambda: float(step(state, fixed)["total"]))
+        del state, step, fixed
+    torch.cuda.empty_cache()
+    # serving in f32 (TF32 off: the engine's kernels are held against cuDNN)
+    result["serve"] = serve_phase(cfg, assets, gpu_line, "f32-serve", buckets=(BATCH,))
+    w18 = copy.deepcopy(cfg)
+    w18.model.encoder = F32_SIMT_ENCODER
+    result["simt_rows"] = kernel_phase(w18, assets, skip={"fused_mha": set(shape_counts(
+        cfg, assets, "fused_mha"))}, label=F32_SIMT_ENCODER, dtypes=("float32",))["conv3x3"]
+    result["simt_serve"] = serve_phase(w18, assets, gpu_line, f"{F32_SIMT_ENCODER}-f32-serve",
+                                       buckets=(BATCH,))
     return result
 
 
@@ -1473,7 +1667,10 @@ def train_parity_phase(cfg, assets, seeds=TRAIN_PARITY_SEEDS, tag="train-parity"
     for init_seed, batch_seed in seeds:
         with torch.no_grad():
             batch = make_batch(batch_seed)
+        before = _routes()
         card, taken = step(pcfg, DEVICE, init_seed, batch, record_branches())
+        b2 = _check_f32_routes(f"{tag} card step", before,
+                               per_forward(pcfg, assets)["conv3x3"] > 0)
         cpu, _ = step(pcfg, "cpu", init_seed, batch, take_branches(taken))
         if card["grads"].keys() != cpu["grads"].keys():
             raise AssertionError("card and CPU trained different parameters")
@@ -1487,7 +1684,8 @@ def train_parity_phase(cfg, assets, seeds=TRAIN_PARITY_SEEDS, tag="train-parity"
         print(f"[{tag}] one SGD step, {cfg.model.encoder} at {cfg.model.img_size}² (aux heads "
               f"{'on' if cfg.model.with_aux_heads else 'off'}, decoder {cfg.model.decoder}) in "
               f"f32, TF32 off, dropout 0, batch "
-              f"{PARITY_BATCH}, init_model seed {init_seed}"
+              f"{PARITY_BATCH} ({b2} B2 launches on the card, all tf32x3), init_model seed "
+              f"{init_seed}"
               + (f" with the encoder's BatchNorm biases +{BN_BIAS_SHIFT:g}" if cpu["bn"] else "")
               + f", batch seed {batch_seed}, the CPU "
               f"on the card's branches ({len(taken)} ReLU, max-pool and hard-swish calls): loss terms rel "
@@ -1575,8 +1773,8 @@ def eval_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
         launches = {"conv3x3": conv3x3.launches.value,
                     "fused_mha": fused_attention.launches.value, "sdf_grid": sdf.launches.value}
         want = {k: n * forwards[0] for k, n in per_fwd.items()}
-        if forwards[0] == 0 or launches != want or _routes() != {"simt": 0,
-                                                                 "wgmma": want["conv3x3"]}:
+        if forwards[0] == 0 or launches != want or _routes() != {
+                "simt": 0, "wgmma": want["conv3x3"], "tf32x3": 0}:
             raise AssertionError(f"{forwards[0]} forwards: launches {launches}, B2 routes "
                                  f"{_routes()}; expected {want}, all B2 on wgmma")
         return out, forwards[0], launches
@@ -1652,12 +1850,14 @@ def eval_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
         cfg32.train.precision = "f32"
         small = _contact_split(f"{root}/parity", assets, EVAL_PARITY_N, seed=3)
         vec = {}
+        before = _routes()
         for d in (DEVICE, "cpu"):
             m = init_model(cfg32, assets, torch.Generator().manual_seed(0))
             m = m.to(d, memory_format=torch.channels_last)
             vec[d], _ = evaluate_vectors(cfg32, m, assets, small, batch_size=EVAL_PARITY_BATCH,
                                          device=d)
             if d == DEVICE:
+                b2 = _check_f32_routes("eval-parity", before)
                 with eval_mode(m):
                     out = m(normalize_imagenet(torch.from_numpy(np.array(small.images)).to(d)
                                                .float() / 255.0), **model_call_kwargs(assets, d))
@@ -1673,7 +1873,8 @@ def eval_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
         worst = max(errs, key=errs.get)
         n_contact = int(np.isfinite(vec["cpu"]["cdev"]).sum())
         print(f"[eval-parity] f32, TF32 off, {EVAL_PARITY_N} images at batch "
-              f"{EVAL_PARITY_BATCH}: card vs CPU per-sample metrics, worst {worst} "
+              f"{EVAL_PARITY_BATCH} ({b2} B2 launches on the card, all tf32x3): card vs CPU "
+              f"per-sample metrics, worst {worst} "
               f"{errs[worst]:.3e} m (limit {EVAL_RTOL:g}·max|verts3d| = "
               f"{EVAL_RTOL * scale:.3e}); cdev NaN pattern equal ({n_contact} samples in "
               f"contact)", flush=True)
@@ -2615,13 +2816,14 @@ def _launches() -> dict:
 
 
 def _check_run_launches(label: str, launches: dict, want: dict,
-                        must_launch: tuple = ("conv3x3",)) -> None:
-    """The path's launches, reset to 0 before it ran, against `want`, every
-    B2 on `wgmma`; each kernel of `must_launch` (those the path runs) must
-    have launched."""
-    if launches != want or _routes() != {"simt": 0, "wgmma": want["conv3x3"]}:
+                        must_launch: tuple = ("conv3x3",), routes: dict | None = None) -> None:
+    """The path's launches, reset to 0 before it ran, against `want`, and
+    B2's routes against `routes` (default: every B2 on `wgmma`); each
+    kernel of `must_launch` (those the path runs) must have launched."""
+    routes = routes or {"simt": 0, "wgmma": want["conv3x3"], "tf32x3": 0}
+    if launches != want or _routes() != routes:
         raise AssertionError(f"{label}: launches {launches}, B2 routes {_routes()}; expected "
-                             f"{want}, every B2 on wgmma")
+                             f"{want}, B2 routes {routes}")
     for name in must_launch:
         if not launches[name]:
             raise AssertionError(f"{label}: {name} never launched")
@@ -3185,7 +3387,8 @@ def serve_phase(cfg, assets, gpu_line: str, tag: str, n_images: int = BATCH,
     (`hold_path_kernels`). Then, counted from 0: `requests` single-image
     requests through `BatchingServer`, one `predict` at each bucket below
     the largest, and three of `n_images`. Held: exactly the model's B2 and
-    B1 calls a forward (`kernel_shapes`), every B2 on `wgmma`; outputs of
+    B1 calls a forward (`kernel_shapes`), each B2 on its route (`conv3x3.route`:
+    bf16 `wgmma`, float32 `tf32x3` at the trunks' widths); outputs of
     their shapes, finite. Prints images/s, the median of the three, and a
     served request against the same image in the big batch (not held:
     cuDNN may pick other algorithms at other batch sizes)."""
@@ -3233,7 +3436,8 @@ def serve_phase(cfg, assets, gpu_line: str, tag: str, n_images: int = BATCH,
     per_fwd = dict(per_forward(cfg, assets), sdf_grid=0)
     want = {k: n * forwards[0] for k, n in per_fwd.items()}
     _check_run_launches(tag, launches, want,
-                        must_launch=tuple(k for k, n in per_fwd.items() if n))
+                        must_launch=tuple(k for k, n in per_fwd.items() if n),
+                        routes={k: n * forwards[0] for k, n in path_routes(cfg, assets).items()})
     for i, res in enumerate(served):
         if res["verts3d_left"].shape != (778, 3):
             raise AssertionError(f"{tag} request {i}: shape {res['verts3d_left'].shape}")
@@ -3791,6 +3995,7 @@ def _world2_rank(rank: int, workdir: str, cfg, batch: dict, device: str) -> None
     taken = torch.load(f"{workdir}/branches{rank}.pt", weights_only=True)
     out, _ = _world_step(cfg, make_synthetic_assets(0), batch, rows, str(device),
                          take_branches(taken))
+    out["routes"] = _routes()  # this process's B2 launches
     torch.save(out, f"{workdir}/rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -3817,7 +4022,9 @@ def world2_phase(cfg, assets) -> dict:
                                 cfg.model.img_size)
     # world 1 first: its ReLU, max-pool and hard-swish branches are the
     # ranks' (a kink within rounding would otherwise go either way)
+    before = _routes()
     one, taken = _world_step(wcfg, assets, batch, None, DEVICE, record_branches())
+    b2 = _check_f32_routes("world 1 step", before)
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
         for r in range(2):
@@ -3839,6 +4046,10 @@ def world2_phase(cfg, assets) -> dict:
         if codes != [0, 0]:
             raise AssertionError(f"the two ranks on the card exited {codes}")
         ranks = [torch.load(f"{root}/rank{r}.pt", weights_only=True) for r in range(2)]
+    for r, rank in enumerate(ranks):
+        if rank["routes"] != {"simt": 0, "wgmma": 0, "tf32x3": b2}:
+            raise AssertionError(f"rank {r}: B2 routes {rank['routes']}; expected world 1's "
+                                 f"{b2} launches, all on tf32x3")
     terms = max(abs(ranks[0]["terms"][k] - v) / max(abs(v), 1e-12)
                 for k, v in one["terms"].items())
     bn = max(float((ranks[0]["bn"][k] - v).abs().max() / v.abs().max())
@@ -3852,7 +4063,8 @@ def world2_phase(cfg, assets) -> dict:
     print(f"[world2] two ranks on one card over gloo (all_reduce, broadcast on CUDA tensors), "
           f"{cfg.model.encoder} f32, TF32 off, dropout 0, one SGD step at {WORLD2_BATCH} a rank "
           f"(global {2 * WORLD2_BATCH}), the encoder's BatchNorm biases +{BN_BIAS_SHIFT:g}, "
-          f"the ranks on world 1's branches, against world 1 at batch {2 * WORLD2_BATCH}: terms rel max|Δ| {terms:.2e} (limit "
+          f"the ranks on world 1's branches, against world 1 at batch {2 * WORLD2_BATCH} "
+          f"({b2} B2 launches in each process, all tf32x3): terms rel max|Δ| {terms:.2e} (limit "
           f"1e-4), BatchNorm statistics {bn:.2e} (limit 1e-5), gradients worst {gaps[worst]:.2e} "
           f"({worst}; limit 1.5e-3), {100 * tight:.1f}% of {len(gaps)} tensors within 1e-4 "
           f"(limit 80%); the ranks' gradients and statistics "
@@ -3920,7 +4132,8 @@ def ddp_phase(cfg, assets, gpu_line: str, profile: bool = False) -> dict:
         ddp = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
         launches = ddp["kernel_launches"]
         want = {"conv3x3": per_step * DDP_STEPS, "conv3x3_simt": 0,
-                "conv3x3_wgmma": per_step * DDP_STEPS, "fused_mha": 0, "sdf_grid": 0}
+                "conv3x3_wgmma": per_step * DDP_STEPS, "conv3x3_tf32x3": 0, "fused_mha": 0,
+                "sdf_grid": 0}
         if ddp["world"] != 1 or ddp["final_step"] != DDP_STEPS or launches != want:
             raise AssertionError(f"torchrun apps.train --multihost: {ddp}; expected world 1, "
                                  f"{DDP_STEPS} updates, launches {want}")
@@ -4184,6 +4397,7 @@ def run(json_path: str | None, profile: bool) -> int:
     demo = demo_phase(cfg, assets, gpu_line)
     pathtrace = pathtrace_phase(assets, gpu_line)
     bf16 = bf16_decoder_phase(cfg, assets, gpu_line)
+    f32 = f32_train_phase(assets, gpu_line, profile)
     per_sample_ms = 1e3 * synth["refine_seconds"] / SYNTH_N
     b3_ms = synth["per_sample"] * on_path[0]["ms"]
     print(f"[synth] B3 in a refined sample: {synth['per_sample']} launches x "
@@ -4191,16 +4405,19 @@ def run(json_path: str | None, profile: bool) -> int:
           f"({100 * b3_ms / per_sample_ms:.1f}%)", flush=True)
 
     src = "renderih_tpu_torch"
+    f32_rows = [r for r in rows["conv3x3"] if r["dtype"] == "float32"]
     kernels = [
-        dict(name="conv3x3_same", path="serve", route="cuda", source=f"{src}/csrc/conv3x3.cu",
+        dict(name="conv3x3_same", kernel="conv3x3_wgmma", path="serve", route="cuda",
+             source=f"{src}/csrc/conv3x3.cu",
              replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_summary([r for r in rows["conv3x3"] if r["dtype"] == "bfloat16"],
                         path["launches"]["conv3x3"])),
-        dict(name="conv3x3_same", path="train", route="cuda", source=f"{src}/csrc/conv3x3.cu",
+        dict(name="conv3x3_same", kernel="conv3x3_wgmma", path="train", route="cuda",
+             source=f"{src}/csrc/conv3x3.cu",
              replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_train_summary([r for r in bwd_rows if r["dtype"] == "bfloat16"],
                               train["launches"]["conv3x3"])),
-        dict(name="conv3x3_same", path="recipe_train", route="cuda",
+        dict(name="conv3x3_same", kernel="conv3x3_wgmma", path="recipe_train", route="cuda",
              source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_train_summary(recipe_bwd, recipe["launches"]["conv3x3"])),
         dict(name="fused_mha", path="serve", route="cuda", source=f"{src}/csrc/fused_attention.cu",
@@ -4213,11 +4430,11 @@ def run(json_path: str | None, profile: bool) -> int:
              **_summary(_path_rows(vit_rows["fused_mha"] + rows["fused_mha"],
                                    kernel_shapes(load_config(VIT_YAML), assets)["fused_mha"]),
                         vit["serve"]["launches"]["fused_mha"])),
-        dict(name="conv3x3_same", path="hrnet_serve", route="cuda",
+        dict(name="conv3x3_same", kernel="conv3x3_wgmma", path="hrnet_serve", route="cuda",
              source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_summary([r for r in hrnet_rows["conv3x3"] if r["dtype"] == "bfloat16"],
                         hrnet["serve"]["launches"]["conv3x3"])),
-        dict(name="conv3x3_same", path="hrnet_train", route="cuda",
+        dict(name="conv3x3_same", kernel="conv3x3_wgmma", path="hrnet_train", route="cuda",
              source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_train_summary(hrnet_bwd, hrnet["train"]["launches"]["conv3x3"])),
         dict(name="fused_mha", path="interpoint", route="cuda",
@@ -4225,7 +4442,7 @@ def run(json_path: str | None, profile: bool) -> int:
              replaces="renderih_tpu/kernels/fused_attention.py:43",
              **_summary([r for r in lib_rows if r["dtype"] == "float32"],
                         library["unit_launches"]["fused_mha"])),
-        dict(name="conv3x3_same", path="ddp_train", route="cuda",
+        dict(name="conv3x3_same", kernel="conv3x3_wgmma", path="ddp_train", route="cuda",
              source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_train_summary([r for r in bwd_rows if r["dtype"] == "bfloat16"],
                               ddp["launches"]["conv3x3"])),
@@ -4237,10 +4454,22 @@ def run(json_path: str | None, profile: bool) -> int:
              source=f"{src}/csrc/sdf.cu", replaces="renderih_tpu/kernels/sdf_pallas.py:124",
              **dict(_summary(on_path, corpus["synth"]["launches"]["sdf_grid"]),
                     max_abs_err=max(r["max_abs_err"] for r in rows["sdf_grid"]))),
-        dict(name="conv3x3_same", path="bf16_validate_train", route="cuda",
-             source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
+        dict(name="conv3x3_same", kernel="conv3x3_wgmma", path="bf16_validate_train",
+             route="cuda", source=f"{src}/csrc/conv3x3.cu",
+             replaces="renderih_tpu/kernels/conv_pallas.py:160",
              **_train_summary([r for r in bwd_rows if r["dtype"] == "bfloat16"],
                               bf16["train_launches"])),
+        dict(name="conv3x3_same", kernel="conv3x3_tf32x3", path="f32_train", route="cuda",
+             source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
+             **_train_summary(f32["conv_backward"], f32["launches"]["conv3x3"])),
+        dict(name="conv3x3_same", kernel="conv3x3_tf32x3", path="f32_serve", route="cuda",
+             source=f"{src}/csrc/conv3x3.cu", replaces="renderih_tpu/kernels/conv_pallas.py:160",
+             **_summary(f32_rows, f32["serve"]["launches"]["conv3x3"])),
+        dict(name="conv3x3_same", kernel="conv3x3_simt", path=f"{F32_SIMT_ENCODER}_f32_serve",
+             route="cuda", source=f"{src}/csrc/conv3x3.cu",
+             replaces="renderih_tpu/kernels/conv_pallas.py:160",
+             **_summary([r for r in f32["simt_rows"] if r["route"] == "simt"],
+                        f32["simt_serve"]["conv3x3_routes"]["simt"])),
     ]
     if json_path:
         with open(json_path, "w") as f:
@@ -4258,7 +4487,7 @@ def run(json_path: str | None, profile: bool) -> int:
                        "library": library, "gan": gan, "ddp": ddp, "world2": world2,
                        "dataset_tools": data_tools, "corpus": corpus,
                        "perspective": perspective, "demo": demo, "pathtrace": pathtrace,
-                       "bf16_decoder": bf16, "kernels": kernels}, f, indent=1,
+                       "bf16_decoder": bf16, "f32_train": f32, "kernels": kernels}, f, indent=1,
                       default=float)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))

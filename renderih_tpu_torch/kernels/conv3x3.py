@@ -8,10 +8,13 @@ both bfloat16, and returns NHWC in x's dtype. It replaces
 
 Dispatch: a CPU tensor takes the plain version (`conv3x3_reference`); a
 CUDA tensor launches the kernel or raises. There is no other route.
-On the card the C launcher picks one of two kernels and reports which:
-`wgmma` (Hopper tensor cores; bf16 with Cin % 16 == 0, Cout % 8 == 0 and
-16-byte aligned tensors) or `simt` (CUDA cores; f32 and every other
-input). `routes` counts the launches of each beside `launches`.
+On the card the C launcher picks one of three kernels and reports which:
+`wgmma` (Hopper tensor cores, bf16 with Cin % 16 == 0), `tf32x3` (the same
+tensor-core kernel in float32, three TF32 passes, with Cin % 8 == 0; its
+weight split into TF32 hi and lo halves first, into a scratch buffer
+allocated here), both with Cout % 8 == 0 and 16-byte aligned tensors, or
+`simt` (CUDA cores; every other input, in either dtype). `route` states
+that rule; `routes` counts the launches of each beside `launches`.
 
 Backward (`_Conv3x3Fn`, the counterpart of `conv_pallas.py:_bwd`): the
 exact transpose pair. dx is itself a stride-1 SAME 3x3 conv of the output
@@ -31,12 +34,23 @@ import torch.nn.functional as F
 from renderih_tpu_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    f"conv3x3_same_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.POINTER(_I))
-    for t in ("f32", "bf16")
+_SIGNATURES = {  # x, w, [f32: the split weight's scratch], y, B, H, W, Cin, Cout, stream, route
+    "conv3x3_same_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.POINTER(_I)),
+    "conv3x3_same_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.POINTER(_I)),
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-ROUTES = ("simt", "wgmma")  # the launcher's route codes 0 and 1
+ROUTES = ("simt", "wgmma", "tf32x3")  # the launcher's route codes 0, 1 and 2
+
+
+def route(dtype: torch.dtype, cin: int, cout: int, aligned: bool = True) -> str:
+    """The route the launcher (`csrc/conv3x3.cu:launch`) takes: `wgmma` for
+    bf16 with Cin % 16 == 0, `tf32x3` for float32 with Cin % 8 == 0, both
+    with Cout % 8 == 0 and `aligned` (x, w and y 16-byte aligned); else
+    `simt`. The wrapper and the card's checks read the rule here."""
+    bf16 = dtype == torch.bfloat16
+    if aligned and cin % (16 if bf16 else 8) == 0 and cout % 8 == 0:
+        return "wgmma" if bf16 else "tf32x3"
+    return "simt"
 
 launches = _build.LaunchCounter()
 routes = {name: _build.LaunchCounter() for name in ROUTES}
@@ -105,13 +119,20 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return y
     lib = _build.load("conv3x3", _SIGNATURES)
     fn = getattr(lib, f"conv3x3_same_{_SUFFIX[x.dtype]}")
-    route = _I(-1)
+    ptrs = [x.data_ptr(), w.data_ptr(), y.data_ptr()]
+    if x.dtype == torch.float32:
+        # the tf32x3 route's weight, split into hi and lo, (2, 9, Cout, Cin);
+        # null where the route is simt (the launcher raises if tf32x3 lacks it)
+        aligned = not (x.data_ptr() | w.data_ptr() | y.data_ptr()) & 15
+        w_split = (torch.empty((2, 9, cout, cin), dtype=x.dtype, device=x.device)
+                   if route(x.dtype, cin, cout, aligned) == "tf32x3" else None)
+        ptrs.insert(2, None if w_split is None else w_split.data_ptr())
+    taken = _I(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin,
-                 cout, stream, ctypes.byref(route))
+        err = fn(*ptrs, b, h, wd, cin, cout, stream, ctypes.byref(taken))
     if err != 0:
         raise RuntimeError(f"conv3x3_same: kernel launch failed (CUDA error {err})")
     launches.add()
-    routes[ROUTES[route.value]].add()
+    routes[ROUTES[taken.value]].add()
     return y

@@ -42,11 +42,6 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
 
-def _conv_route(dtype, cin, cout):
-    """The kernel the launcher must pick for a 16-byte aligned input."""
-    return "wgmma" if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0 else "simt"
-
-
 def _routes():
     return {name: c.value for name, c in conv3x3.routes.items()}
 
@@ -57,7 +52,11 @@ def _routes():
     # Cin no multiple of a 32/64 chunk; Cout no multiple of the N tile
     (2, 9, 11, 16, 64), (2, 10, 12, 48, 32), (2, 11, 9, 32, 136),
     # small maps: images folded into M, a ragged last group of images
-    (1, 5, 7, 32, 64), (3, 5, 7, 32, 64), (1, 8, 8, 64, 128), (3, 8, 8, 64, 128)])
+    (1, 5, 7, 32, 64), (3, 5, 7, 32, 64), (1, 8, 8, 64, 128), (3, 8, 8, 64, 128),
+    # Cin or Cout no multiple of 8 (HRNet-W18's 18 and 36 channels): simt in
+    # both dtypes; Cin 8, 24 (one and three f32 chunks): tf32x3, simt in bf16
+    (2, 9, 11, 18, 36), (2, 12, 10, 36, 72), (2, 10, 9, 24, 20), (2, 10, 9, 24, 40),
+    (2, 17, 19, 8, 16)])
 def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
     b, h, w, cin, cout = shape
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -68,7 +67,7 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
     got = conv3x3.conv3x3_same(x, k)
     torch.cuda.synchronize()
     assert conv3x3.launches.value == n + 1
-    routes[_conv_route(dtype, cin, cout)] += 1
+    routes[conv3x3.route(dtype, cin, cout)] += 1
     assert _routes() == routes
     assert got.shape == (b, h, w, cout) and got.dtype == dtype
     atol, rtol = TOL[dtype]
@@ -90,6 +89,43 @@ def test_conv3x3_bf16_off_the_tensor_core_layout(cuda, cout):
     assert conv3x3.routes["simt"].value == simt + 1
     torch.testing.assert_close(got.float(), conv3x3.conv3x3_reference(x, k).float(),
                                atol=TOL[torch.bfloat16][0], rtol=TOL[torch.bfloat16][1])
+
+
+def test_conv3x3_f32_off_the_tensor_core_layout(cuda):
+    """A float32 input that is contiguous but not 16-byte aligned runs on
+    the CUDA-core kernel: same answer, and no `tf32x3` launch."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = 2 * 9 * 11 * 32
+    x = torch.randn(n + 1, device=cuda, generator=g)[1:].view(2, 9, 11, 32)
+    k = torch.randn(3, 3, 32, 64, device=cuda, generator=g) / 17.0
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    routes = _routes()
+    got = conv3x3.conv3x3_same(x, k)
+    routes["simt"] += 1
+    assert _routes() == routes
+    torch.testing.assert_close(got, conv3x3.conv3x3_reference(x, k),
+                               atol=TOL[torch.float32][0], rtol=TOL[torch.float32][1])
+
+
+@pytest.mark.parametrize("side,c", [(64, 64), (32, 128), (16, 256), (8, 512)])
+def test_conv3x3_f32_dx_through_tf32x3_matches_cudnn(cuda, side, c):
+    """The four ResNet-50 training shapes at batch 4 in float32: dx through
+    the `tf32x3` route (the flipped, channel-swapped weight split anew)
+    against cuDNN's `conv2d_input` with TF32 off."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(4, side, side, c, device=cuda, generator=g)
+    w = torch.randn(3, 3, c, c, device=cuda, generator=g) / (9 * c) ** 0.5
+    gy = torch.randn(4, c, side, side, device=cuda, generator=g).permute(0, 2, 3, 1)
+    xk = x.clone().requires_grad_()
+    routes = _routes()
+    conv3x3.conv3x3_same(xk, w).backward(gy)
+    torch.cuda.synchronize()
+    routes["tf32x3"] += 2  # forward and dx
+    assert _routes() == routes
+    want = torch.nn.grad.conv2d_input(x.permute(0, 3, 1, 2).shape, w.permute(3, 2, 0, 1),
+                                      gy.permute(0, 3, 1, 2), padding=1)
+    torch.testing.assert_close(xk.grad, want.permute(0, 2, 3, 1), atol=TOL[torch.float32][0],
+                               rtol=TOL[torch.float32][1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -198,9 +234,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("side,c", [(64, 64), (32, 128), (16, 256), (8, 512)])
 def test_conv3x3_backward_matches_plain_autograd(cuda, side, c, dtype):
     """The training shapes of B2 (batch 2 here): dx through the kernel (its
-    `wgmma` route in bf16), dw by cuDNN, against the plain version's
-    autograd; the output gradient arrives as the NHWC view of an NCHW
-    tensor, as the ResNet gives it."""
+    `wgmma` route in bf16, `tf32x3` in float32), dw by cuDNN, against the
+    plain version's autograd; the output gradient arrives as the NHWC view
+    of an NCHW tensor, as the ResNet gives it."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(2, side, side, c, device=cuda, generator=g).to(dtype)
     w = (torch.randn(3, 3, c, c, device=cuda, generator=g) / (9 * c) ** 0.5).to(dtype)
@@ -210,7 +246,7 @@ def test_conv3x3_backward_matches_plain_autograd(cuda, side, c, dtype):
     conv3x3.conv3x3_same(xk, wk).backward(gy)
     torch.cuda.synchronize()
     assert conv3x3.launches.value == n + 2  # forward and dx
-    routes[_conv_route(dtype, c, c)] += 2
+    routes[conv3x3.route(dtype, c, c)] += 2
     assert _routes() == routes
     xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
     conv3x3.conv3x3_reference(xp, wp).backward(gy)
@@ -227,7 +263,8 @@ def test_conv3x3_forward_and_dx_at_hrnet_shapes(cuda, side, c, dtype):
     """HRNet-W32's B2 shapes (its branches at 32-256 channels; layer1 and
     the first incre block at 64): forward and dx through the kernel (on
     `wgmma` in bf16, Cout = 32 filling half of its 64-channel tile)
-    against the plain version's autograd (cuDNN on the card)."""
+    against the plain version's autograd (cuDNN on the card); `tf32x3` in
+    float32."""
     g = torch.Generator(device=cuda).manual_seed(5)
     x = torch.randn(3, side, side, c, device=cuda, generator=g).to(dtype)
     w = (torch.randn(3, 3, c, c, device=cuda, generator=g) / (9 * c) ** 0.5).to(dtype)
@@ -237,7 +274,7 @@ def test_conv3x3_forward_and_dx_at_hrnet_shapes(cuda, side, c, dtype):
     y = conv3x3.conv3x3_same(xk, wk)
     y.backward(gy)
     torch.cuda.synchronize()
-    routes[_conv_route(dtype, c, c)] += 2
+    routes[conv3x3.route(dtype, c, c)] += 2
     assert _routes() == routes
     xp = x.clone().requires_grad_()
     yp = conv3x3.conv3x3_reference(xp, w)

@@ -153,6 +153,124 @@ def test_flagship_attention_shapes_are_the_modelled_ones():
     assert sorted((n, d) for n, _, _, d in shapes) == sorted(FLAGSHIP_MHA)
 
 
+# B2's float32 route (csrc/conv3x3.cu, conv3x3_tf32x3), modelled on the CPU:
+# why its products are split three ways as B1's are, and why each chunk's sum
+# is added into the running sum in float32.
+
+CONV_TOL = (1e-4, 1e-4)  # atol, rtol: chip_smoke.CONV_TOL["float32"]
+# (side, Cin, Cout) of every B2 call of the flagship ResNet-50 at 256², where
+# chip_smoke.py holds the kernel to CONV_TOL in float32
+FLAGSHIP_CONV_F32 = [(64, 64, 64), (32, 128, 128), (16, 256, 256), (8, 512, 512)]
+
+
+def _conv_tf32_model(x, w, passes):
+    """The kernel's float32 arithmetic: the plain conv (NHWC x HWIO) on TF32
+    operands with float32 sums, one pass (hi.hi) or 3xTF32 in the kernel's
+    order, lo.hi + hi.lo + hi.hi (x's split made in registers, w's by
+    `tf32_split_weights`, both as `_tf32_product` splits)."""
+    conv = conv3x3.conv3x3_reference
+    x_hi, w_hi = _tf32(x), _tf32(w)
+    out = conv(x_hi, w_hi)
+    if passes == 3:
+        x_lo, w_lo = _tf32(x - x_hi, nearest=False), _tf32(w - w_hi, nearest=False)
+        out = conv(x_lo, w_hi) + conv(x_hi, w_lo) + out
+    return out
+
+
+def _conv_inputs(side, cin, cout, seed, batch=2):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch, side, side, cin)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
+    return x, w
+
+
+@pytest.mark.parametrize("side,cin,cout", FLAGSHIP_CONV_F32)
+def test_conv_3xtf32_model_is_within_the_f32_tolerance(side, cin, cout):
+    """At every flagship shape the 3xTF32 model is within the card's f32
+    tolerance of the JAX package's XLA conv."""
+    x, w = _conv_inputs(side, cin, cout, seed=side)
+    got = _conv_tf32_model(torch.from_numpy(x), torch.from_numpy(w), passes=3)
+    want = np.asarray(_xla_conv3x3(jnp.asarray(x), jnp.asarray(w)))
+    np.testing.assert_allclose(got.numpy(), want, atol=CONV_TOL[0], rtol=CONV_TOL[1])
+
+
+def test_conv_one_pass_tf32_model_is_outside_the_f32_tolerance():
+    """One TF32 pass misses the tolerance at 64²x64 where 3xTF32 meets it
+    with room to spare: why the kernel runs three."""
+    x, w = (torch.from_numpy(a) for a in _conv_inputs(64, 64, 64, seed=64))
+    want = conv3x3.conv3x3_reference(x, w)
+    limit = CONV_TOL[0] + CONV_TOL[1] * want.abs()
+    err1 = (_conv_tf32_model(x, w, passes=1) - want).abs()
+    err3 = (_conv_tf32_model(x, w, passes=3) - want).abs()
+    assert (err1 > limit).any()
+    assert float(err3.max()) < 1e-5 < float(err1.max())
+
+
+def _round_toward_zero(v):
+    """float64 -> float32, rounded toward zero."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tf32_accumulation_model(x, w, per_chunk):
+    """One output channel's sums over a (pixels, 9 * Cin) patch as the kernel
+    makes them: per 8-channel chunk and tap, lo.hi, hi.lo and hi.hi k8 dot
+    products (exact) added into a float32 accumulator rounded toward zero,
+    as the tensor core adds into its accumulator. `per_chunk`: each chunk
+    into a zeroed accumulator, added into the running sum rounded to
+    nearest (the kernel); else one accumulator for the whole depth."""
+    n, depth = x.shape
+    chunks = depth // 72  # 9 taps x 8 channels
+    x_hi, w_hi = _tf32(torch.from_numpy(x)).numpy(), _tf32(torch.from_numpy(w)).numpy()
+    x_lo = _tf32(torch.from_numpy(x - x_hi), nearest=False).numpy()
+    w_lo = _tf32(torch.from_numpy(w - w_hi), nearest=False).numpy()
+    # [pixel, chunk, tap, channel]
+    xh, xl, wh, wl = (a.reshape(n, 9, chunks, 8).transpose(0, 2, 1, 3)
+                      for a in (x_hi, x_lo, w_hi, w_lo))
+    total = np.zeros(n, np.float32)
+    acc = np.zeros(n, np.float32)
+    for c in range(chunks):
+        if per_chunk:
+            acc = np.zeros(n, np.float32)
+        for t in range(9):
+            for a, b in ((xl, wh), (xh, wl), (xh, wh)):
+                dot = (a[:, c, t].astype(np.float64) * b[:, c, t]).sum(1)
+                acc = _round_toward_zero(acc.astype(np.float64) + dot)
+        if per_chunk:
+            total = total + acc
+    return total if per_chunk else acc
+
+
+def test_conv_tf32_sums_need_a_nearest_rounded_sum_per_chunk():
+    """The tensor core's accumulator rounds toward zero, so one float32
+    accumulator over 3 x 9 x 512 / 8 = 1728 adds drifts towards the f32
+    tolerance at 8²x512 (0.835 of it on an H100, chip_smoke.py phase 2,
+    before the kernel summed per chunk); a fresh accumulator a
+    chunk, added in float32 rounded to nearest, leaves the error of a plain
+    f32 sum: why the kernel promotes each chunk's sum."""
+    rng = np.random.default_rng(512)
+    depth = 9 * 512
+    x = rng.normal(size=(4000, depth)).astype(np.float32)
+    w = (rng.normal(size=(4000, depth)) / np.sqrt(depth)).astype(np.float32)
+    want = (x.astype(np.float64) * w).sum(1)
+    limit = CONV_TOL[0] + CONV_TOL[1] * np.abs(want)
+    share = {per_chunk: float((np.abs(_tf32_accumulation_model(x, w, per_chunk) - want)
+                               / limit).max()) for per_chunk in (False, True)}
+    assert share[False] > 0.3 and share[True] < 0.05, share
+
+
+def test_flagship_conv_shapes_are_the_modelled_ones():
+    """FLAGSHIP_CONV_F32 is every shape at which chip_smoke.py measures B2."""
+    import chip_smoke
+    from renderih_tpu_torch.assets import make_synthetic_assets
+    from renderih_tpu_torch.config import Config
+
+    shapes = chip_smoke.shape_counts(Config(), make_synthetic_assets(0), "conv3x3")
+    assert sorted(shapes) == sorted(FLAGSHIP_CONV_F32)
+
+
 def test_cpu_calls_take_the_plain_version_and_count_nothing():
     x = torch.randn(1, 6, 6, 8)
     w = torch.randn(3, 3, 8, 4)
