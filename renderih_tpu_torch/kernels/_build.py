@@ -25,6 +25,9 @@ import subprocess
 import threading
 from pathlib import Path
 
+# the kernels' launch counters, under the name their readers use
+from renderih_tpu_torch.utils.trace import Counter as LaunchCounter  # noqa: F401
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "renderih_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -149,22 +152,3 @@ def load_host(name: str, signatures: dict) -> ctypes.CDLL:
             _libs[key] = lib
         return lib
 
-
-class LaunchCounter:
-    """Number of kernel launches made by one wrapper (thread-safe)."""
-
-    def __init__(self) -> None:
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        return self._n

@@ -37,6 +37,7 @@ from renderih_tpu_torch.models.hrnet import HRNetEncoder, HRNetMid
 from renderih_tpu_torch.models.layers import lecun_normal_
 from renderih_tpu_torch.models.resnet import AuxDecoderHead, ResNet, ResNetMid
 from renderih_tpu_torch.models.vit import ViTEncoder, ViTMid, vit_pyramid
+from renderih_tpu_torch.utils import trace
 
 
 class ResNetEncoder(nn.Module):
@@ -125,15 +126,19 @@ class HandNet(nn.Module):
         predictions, NHWC: 'hms' (B, S, S, 42), 'mask' (B, S, S) and
         'dense' (B, S, S, 6), S = img_size / 4."""
         x = img.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, channels_last
-        pyramid = vit_pyramid(self, x) if self.vit else self.encoder(x)
+        # each span holds its child's call alone, the casts between them outside
+        with trace.span("model.encoder"):
+            pyramid = vit_pyramid(self, x) if self.vit else self.encoder(x)
         # The decoder reads the first len(verts_nums) maps. Training projects
         # all of them, as the JAX package does: the unread map's BatchNorm
         # still updates its running statistics there.
         n_levels = None if self.training else len(self.decoder.verts_nums)
-        global_feature, fmaps = self.mid_model(pyramid, n_levels)
-        used = fmaps[:len(self.decoder.verts_nums)]
-        out = self.decoder(global_feature.float(), [f.float() for f in used],
-                           pe_left, pe_right, bbox_info)
+        with trace.span("model.mid_model"):
+            global_feature, fmaps = self.mid_model(pyramid, n_levels)
+        global_feature = global_feature.float()
+        used = [f.float() for f in fmaps[:len(self.decoder.verts_nums)]]
+        with trace.span("model.decoder"):
+            out = self.decoder(global_feature, used, pe_left, pe_right, bbox_info)
         if aux and self.hms_head is not None:
             nhwc = lambda head: head(pyramid[0]).float().permute(0, 2, 3, 1)
             hms = nhwc(self.hms_head)

@@ -33,6 +33,7 @@ the first.
 from __future__ import annotations
 
 import copy
+import itertools
 import queue
 import threading
 import time
@@ -46,8 +47,11 @@ from renderih_tpu_torch.config import Config
 from renderih_tpu_torch.models import init_model, model_call_kwargs
 from renderih_tpu_torch.ops.image import normalize_imagenet
 from renderih_tpu_torch.parallel.mesh import Mesh, gather, split_batch
+from renderih_tpu_torch.utils import trace
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
+_ROWS = trace.counter("engine.rows")          # real rows of every forward of `predict`
+_PAD_ROWS = trace.counter("engine.pad_rows")  # and the rows padding them to the bucket
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -115,13 +119,18 @@ class InferenceEngine:
                           zip(self.mesh.devices, replicate(self.model, self.mesh.devices))]
 
     def _forward(self, img_u8: np.ndarray) -> dict:
-        """The bucket's slices on the mesh's devices (every forward queued
+        """`img_u8` padded up to its bucket with copies of its last image,
+        the bucket's slices on the mesh's devices (every forward queued
         before any is gathered), gathered in order on the first device."""
-        parts = split_batch(self.mesh, torch.from_numpy(np.ascontiguousarray(img_u8)))
-        outs = []
-        with torch.inference_mode():
-            for (model, kwargs), x in zip(self._replicas, parts):
-                outs.append(model(normalize_imagenet(x.float() / 255.0), **kwargs))
+        with trace.span("engine.upload"):
+            b = self._bucket(len(img_u8))
+            if len(img_u8) < b:
+                pad = np.repeat(img_u8[-1:], b - len(img_u8), axis=0)
+                img_u8 = np.concatenate([img_u8, pad], axis=0)
+            parts = split_batch(self.mesh, torch.from_numpy(np.ascontiguousarray(img_u8)))
+        with trace.span("engine.forward"), torch.inference_mode():
+            outs = [model(normalize_imagenet(x.float() / 255.0), **kwargs)
+                    for (model, kwargs), x in zip(self._replicas, parts)]
             return {f"{key}_{hand}": gather([getattr(o, key)[hand] for o in outs], self.device)
                     for key in ("verts3d", "verts2d", "scale", "trans2d")
                     for hand in ("left", "right")}
@@ -145,31 +154,32 @@ class InferenceEngine:
         Chunk i+1 is queued on the device before chunk i's results are
         copied back, so the copy overlaps the next chunk's compute.
         """
-        images_u8 = np.asarray(images_u8)
-        n = len(images_u8)
-        if n == 0:
-            raise ValueError("predict needs at least one image")
+        with trace.span("engine.predict"):
+            images_u8 = np.asarray(images_u8)
+            n = len(images_u8)
+            if n == 0:
+                raise ValueError("predict needs at least one image")
 
-        def dispatch(start: int):
-            b = self._bucket(n - start)
-            take = min(n - start, b)
-            chunk = images_u8[start:start + take]
-            if take < b:
-                pad = np.repeat(chunk[-1:], b - take, axis=0)
-                chunk = np.concatenate([chunk, pad], axis=0)
-            return self._forward(chunk), take
+            def dispatch(start: int):
+                b = self._bucket(n - start)
+                take = min(n - start, b)
+                _ROWS.add(take)
+                _PAD_ROWS.add(b - take)
+                return self._forward(images_u8[start:start + take]), take
 
-        outs: list[dict] = []
-        pending, take = dispatch(0)
-        start = take
-        while True:
-            nxt = dispatch(start) if start < n else None
-            outs.append({k: v[:take].cpu().numpy() for k, v in pending.items()})
-            if nxt is None:
-                break
-            pending, take = nxt
-            start += take
-        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+            outs: list[dict] = []
+            pending, take = dispatch(0)
+            start = take
+            while True:
+                nxt = dispatch(start) if start < n else None
+                with trace.span("engine.copy_back"):
+                    outs.append({k: v[:take].cpu().numpy() for k, v in pending.items()})
+                if nxt is None:
+                    break
+                pending, take = nxt
+                start += take
+            with trace.span("engine.concat"):
+                return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
 
 class BatchingServer:
@@ -182,6 +192,7 @@ class BatchingServer:
         self.max_wait_s = max_wait_ms / 1e3
         self._q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
+        self._rids = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -190,7 +201,8 @@ class BatchingServer:
         if self._stop.is_set():
             raise RuntimeError("server closed")
         fut: Future = Future()
-        self._q.put((image_u8, fut))
+        # the queue wait's span, None unless tracing is on
+        self._q.put((image_u8, fut, trace.begin("serve.queue", next(self._rids))))
         return fut
 
     def close(self) -> None:
@@ -199,7 +211,7 @@ class BatchingServer:
         # fail any request the worker never picked up, so no caller blocks
         while True:
             try:
-                _, fut = self._q.get_nowait()
+                _, fut, _ = self._q.get_nowait()
             except queue.Empty:
                 break
             if not fut.done():
@@ -208,24 +220,32 @@ class BatchingServer:
     def _loop(self) -> None:
         while not self._stop.is_set():
             try:
-                first = self._q.get(timeout=0.05)
+                with trace.span("serve.idle"):
+                    first = self._q.get(timeout=0.05)
             except queue.Empty:
                 continue
             batch = [first]
-            t0 = time.perf_counter()
-            while len(batch) < self.max_batch:
-                left = self.max_wait_s - (time.perf_counter() - t0)
-                if left <= 0:
-                    break
+            with trace.span("serve.batch"):
                 try:
-                    batch.append(self._q.get(timeout=left))
-                except queue.Empty:
-                    break
-            try:
-                out = self.engine.predict(np.stack([b[0] for b in batch]))
-                for i, (_, fut) in enumerate(batch):
-                    fut.set_result({k: v[i] for k, v in out.items()})
-            except Exception as e:  # the worker keeps serving; waiters see it
-                for _, fut in batch:
-                    if not fut.done():
-                        fut.set_exception(e)
+                    with trace.span("serve.coalesce"):
+                        trace.end(first[2])
+                        t0 = time.perf_counter()
+                        while len(batch) < self.max_batch:
+                            left = self.max_wait_s - (time.perf_counter() - t0)
+                            if left <= 0:
+                                break
+                            try:
+                                item = self._q.get(timeout=left)
+                            except queue.Empty:
+                                break
+                            trace.end(item[2])
+                            batch.append(item)
+                        images = np.stack([b[0] for b in batch])
+                    out = self.engine.predict(images)
+                    with trace.span("serve.fanout"):
+                        for i, (_, fut, _) in enumerate(batch):
+                            fut.set_result({k: v[i] for k, v in out.items()})
+                except Exception as e:  # the worker keeps serving; waiters see it
+                    for _, fut, _ in batch:
+                        if not fut.done():
+                            fut.set_exception(e)
