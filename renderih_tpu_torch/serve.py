@@ -24,6 +24,53 @@ axis, the weights are replicated on each of its devices, and each bucket
 runs split over them, one contiguous slice a device, gathered in order on
 the first.
 
+CUDA graphs. On the card the engine replays, for each bucket, one
+captured CUDA graph per model part in place of launching the part's
+kernels from Python: the `forward` of `encoder`, `mid_model` and `decoder`
+on each replica (`GRAPHED_PARTS`; the ViT's small `patch_embed`, `conv1`
+and `downsample` stay eager). The model's own `__call__` is left alone, so
+forward hooks on the model or on a part, registered before or after a
+capture, fire on every call with the live arguments and results. A part's
+graph is keyed by what its call's flattened arguments show: each tensor's
+shape, strides, dtype and device, every other argument (`n_levels`, a
+`None` bbox), the structure, and whether inference mode is on. The engine
+captures every bucket before it is returned, so no capture ever runs
+beside a caller's thread: each key runs once eagerly on the engine's own
+capture stream (the warm-up cuBLAS and cuDNN need there), is captured
+there in thread-local mode (a thread serving another engine on the card
+may allocate meanwhile), and the eager run's answer is copied into the
+graph's static outputs. The stream is the engine's alone because cuBLAS
+keeps one workspace for each thread's handle and stream, and every graph
+captured there reads and writes it: on a shared stream another engine's
+warm-up or replays would race this engine's replays on it. cuBLAS keeps
+that workspace, about 35 MB, for the life of the process; the streams come
+from PyTorch's pool, 32 a card, which bounds how many there are, and a
+33rd live engine on one card would share the first one's. A later call
+whose key has no graph, or in training mode or with grad enabled, runs
+eagerly. The graphs of a device share one memory pool,
+captured in call order. What the model's code reads at capture is frozen
+into the graphs: the TF32 and cuDNN flags, and Python-level patches of its
+functions; `ungraph(engine)` puts the eager parts back for code that
+patches them or hooks the parts' inner modules between calls. Arguments
+are copied into the graph's static inputs (strides kept, so channels-last
+stays channels-last), except where an argument already is that buffer:
+another graph's static output, as the encoder's pyramid is the mid model's
+input. B1's and B2's launches sit inside the graphs; their launch counters
+(`kernels/_build.py:LaunchCounter`) count what the device ran: a capture's
+Python calls are held back (`trace.hold`) and each replay adds them. The
+counters `engine.graph_captures`, `engine.graph_replays` and
+`engine.eager_forwards` (the part-calls run eagerly on the card, a
+capture's warm-up run included) give the graphs' hit share. The eight
+outputs of a forward are copied out of the decoder graph's static outputs
+before another replay can be queued (`predict` queues chunk i+1 before
+chunk i's copy back), and one lock per engine (`lock`) covers a forward's
+replays and that copy: the batcher's thread and a caller's may share an
+engine; whoever calls `engine.model` directly holds `engine.lock` around
+the call and copies what it keeps. The graphs read the parameters where
+they are, so weights loaded in place (`engine.model.load_state_dict`) keep
+them valid; moving the model (`.to`) or assigning new parameter tensors
+does not. On the CPU nothing of this runs.
+
     engine = InferenceEngine(cfg)
     out = engine.predict(images_u8)          # (N,256,256,3) uint8 -> dict
     server = BatchingServer(engine)
@@ -41,6 +88,7 @@ from concurrent.futures import Future
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from renderih_tpu_torch.assets import Assets, load_assets
 from renderih_tpu_torch.config import Config
@@ -52,6 +100,10 @@ from renderih_tpu_torch.utils import trace
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 _ROWS = trace.counter("engine.rows")          # real rows of every forward of `predict`
 _PAD_ROWS = trace.counter("engine.pad_rows")  # and the rows padding them to the bucket
+_CAPTURES = trace.counter("engine.graph_captures")  # CUDA graphs captured, one a part and key
+_REPLAYS = trace.counter("engine.graph_replays")    # part-calls replayed from a graph
+_EAGER = trace.counter("engine.eager_forwards")     # part-calls run eagerly on the card
+GRAPHED_PARTS = ("encoder", "mid_model", "decoder")
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -117,6 +169,24 @@ class InferenceEngine:
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self._replicas = [(r, model_call_kwargs(self.assets, d)) for d, r in
                           zip(self.mesh.devices, replicate(self.model, self.mesh.devices))]
+        self.lock = threading.Lock()
+        self._graphs: list = []
+        if self.device.type == "cuda":
+            self._capture_graphs()
+
+    def _capture_graphs(self) -> None:
+        """Graph the parts of every replica and capture every bucket, before
+        any other thread can reach the engine (module docstring)."""
+        self._graphs = [_DeviceGraphs(torch.device(d)) for d in self.mesh.devices]
+        for (replica, _), graphs in zip(self._replicas, self._graphs):
+            for name in GRAPHED_PARTS:
+                graphs.install(getattr(replica, name))
+            graphs.capturing = True
+        try:
+            self.warmup()
+        finally:
+            for graphs in self._graphs:
+                graphs.capturing = False
 
     def _forward(self, img_u8: np.ndarray) -> dict:
         """`img_u8` padded up to its bucket with copies of its last image,
@@ -128,12 +198,14 @@ class InferenceEngine:
                 pad = np.repeat(img_u8[-1:], b - len(img_u8), axis=0)
                 img_u8 = np.concatenate([img_u8, pad], axis=0)
             parts = split_batch(self.mesh, torch.from_numpy(np.ascontiguousarray(img_u8)))
-        with trace.span("engine.forward"), torch.inference_mode():
+        with trace.span("engine.forward"), torch.inference_mode(), self.lock:
             outs = [model(normalize_imagenet(x.float() / 255.0), **kwargs)
                     for (model, kwargs), x in zip(self._replicas, parts)]
-            return {f"{key}_{hand}": gather([getattr(o, key)[hand] for o in outs], self.device)
-                    for key in ("verts3d", "verts2d", "scale", "trans2d")
-                    for hand in ("left", "right")}
+            out = {f"{key}_{hand}": gather([getattr(o, key)[hand] for o in outs], self.device)
+                   for key in ("verts3d", "verts2d", "scale", "trans2d")
+                   for hand in ("left", "right")}
+            # out of the decoder graph's static outputs before the next replay
+            return {k: v.clone() for k, v in out.items()} if self._graphs else out
 
     def warmup(self) -> None:
         """Run every bucket once (first-request latency -> steady state)."""
@@ -180,6 +252,109 @@ class InferenceEngine:
                 start += take
             with trace.span("engine.concat"):
                 return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def _key_of(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return (tuple(leaf.shape), leaf.stride(), leaf.dtype, leaf.device)
+    return leaf
+
+
+class _Graph:
+    """One captured call of a part: its static inputs and outputs, and the
+    counts its capture held back, added at each replay."""
+
+    def __init__(self, graph, inputs: list, outputs: list, spec, held: list):
+        self.graph, self.inputs, self.outputs, self.spec = graph, inputs, outputs, spec
+        totals: dict = {}
+        for counter, n in held:
+            totals[counter] = totals.get(counter, 0) + n
+        self.counts = tuple(totals.items())
+
+    def replay(self, leaves: list):
+        for static, x in zip(self.inputs, leaves):
+            if isinstance(static, torch.Tensor) and static is not x:
+                static.copy_(x)
+        self.graph.replay()
+        for counter, n in self.counts:
+            counter.add(n)
+        _REPLAYS.add()
+        return tree_unflatten(self.outputs, self.spec)
+
+
+class _DeviceGraphs:
+    """The CUDA graphs of an engine's parts on one device (module docstring):
+    the engine's own capture stream, one memory pool, and every graph's
+    static outputs. Keys without a graph are captured only while
+    `capturing` is set."""
+
+    def __init__(self, device: torch.device):
+        self.device, self.capturing = device, False
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.Stream()
+            self.pool = torch.cuda.graph_pool_handle()
+        self.owned: dict = {}  # id -> static output tensor of a graph here
+
+    def install(self, module: torch.nn.Module) -> None:
+        """Put the graphed call in place of `module.forward`."""
+        eager, graphs = module.forward, {}
+
+        def forward(*args, **kwargs):
+            graph = None
+            if not (module.training or torch.is_grad_enabled()):
+                leaves, spec = tree_flatten((args, kwargs))
+                key = (str(spec), torch.is_inference_mode_enabled(), *map(_key_of, leaves))
+                graph = graphs.get(key)
+                if graph is None and self.capturing:
+                    graph, out = self._capture(eager, leaves, spec)
+                    graphs[key] = graph
+                    return out
+            if graph is None:
+                _EAGER.add()
+                return eager(*args, **kwargs)
+            with torch.cuda.device(self.device):
+                return graph.replay(leaves)
+
+        module.forward = forward
+
+    def _capture(self, fn, leaves: list, spec) -> tuple:
+        """`fn` on `leaves` once eagerly on the capture stream, ordered with
+        the current one, then captured there: (the graph, its static outputs
+        holding the eager run's answer)."""
+        inputs = [x if not isinstance(x, torch.Tensor) or self.owned.get(id(x)) is x
+                  else torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+                  for x in leaves]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device):
+            current = torch.cuda.current_stream()
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                _EAGER.add()
+                args, kwargs = tree_unflatten(leaves, spec)
+                answer = tree_flatten(fn(*args, **kwargs))[0]
+            args, kwargs = tree_unflatten(inputs, spec)
+            with trace.hold() as held, torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
+                out = fn(*args, **kwargs)
+            outputs, out_spec = tree_flatten(out)
+            with torch.cuda.stream(self.stream):
+                for static, x in zip(outputs, answer):
+                    if isinstance(static, torch.Tensor):
+                        static.copy_(x)
+            current.wait_stream(self.stream)
+        self.owned.update((id(t), t) for t in outputs if isinstance(t, torch.Tensor))
+        _CAPTURES.add()
+        return _Graph(graph, inputs, outputs, out_spec, held), out
+
+
+def ungraph(engine: InferenceEngine) -> None:
+    """Put back the eager `forward` of every graphed part of `engine`, its
+    graphs dropped: for code that patches the model's functions or hooks
+    the parts' inner modules between calls, which a replay would not see."""
+    for replica, _ in engine._replicas:
+        for name in GRAPHED_PARTS:
+            vars(getattr(replica, name)).pop("forward", None)
+    engine._graphs = []
 
 
 class BatchingServer:

@@ -27,8 +27,12 @@ range opens, profiler or not.
 Counters. `Counter` is a count that any thread may add to: the kernels'
 launch counters (`kernels/_build.py` keeps it as `LaunchCounter`) and the
 named counters of `counter(name)`: `engine.rows` and `engine.pad_rows`,
-the real and the padded rows of every forward of `InferenceEngine.predict`.
-Counters count whether tracing is on or not.
+the real and the padded rows of every forward of `InferenceEngine.predict`;
+`engine.graph_captures`, `engine.graph_replays` and `engine.eager_forwards`,
+the engine's CUDA graphs (`serve.py`). Counters count whether tracing is on
+or not. Inside `hold()` a thread's adds are held back and handed to the
+block instead: a CUDA graph's capture runs its calls' Python but none of
+their work, and its replays add what the capture held.
 """
 
 from __future__ import annotations
@@ -172,6 +176,10 @@ class Counter:
         self._lock = threading.Lock()
 
     def add(self, n: int = 1) -> None:
+        held = getattr(_local, "held", None)
+        if held is not None:
+            held.append((self, n))
+            return
         with self._lock:
             self._n += n
 
@@ -182,6 +190,17 @@ class Counter:
     @property
     def value(self) -> int:
         return self._n
+
+
+@contextlib.contextmanager
+def hold():
+    """Hold back every count this thread adds inside the block: the list it
+    yields gets each as (counter, n), and no counter changes."""
+    _local.held = held = []
+    try:
+        yield held
+    finally:
+        _local.held = None
 
 
 _counters: dict = {}

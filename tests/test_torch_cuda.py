@@ -20,8 +20,9 @@ from renderih_tpu_torch.kernels import conv3x3, fused_attention, sdf
 from renderih_tpu_torch.mano.layer import mano_forward
 from renderih_tpu_torch.mano.params import make_synthetic_mano
 from renderih_tpu_torch.ops.rotation import rodrigues
-from renderih_tpu_torch.serve import InferenceEngine
+from renderih_tpu_torch.serve import InferenceEngine, ungraph
 from renderih_tpu_torch.tools import synth_gen
+from renderih_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
 
@@ -44,6 +45,32 @@ def cuda():
 
 def _routes():
     return {name: c.value for name, c in conv3x3.routes.items()}
+
+
+def _graph_counts():
+    names = ("graph_captures", "graph_replays", "eager_forwards")
+    return np.array([trace.counters()[f"engine.{n}"] for n in names])
+
+
+def _graphed_then_eager(engine, imgs, b2, b1):
+    """`engine.predict(imgs)` (one chunk) replayed from the graphs the
+    engine captured as it was built, then with its eager parts put back
+    (`ungraph`): each call launches B2 `b2` and B1 `b1` times, the first
+    replays its three parts and runs none eagerly, and the answers are
+    equal bit for bit. The replayed answers."""
+    runs = []
+    for graphed in (True, False):
+        counts = _graph_counts()
+        launches = (conv3x3.launches.value, fused_attention.launches.value)
+        runs.append(engine.predict(imgs))
+        assert conv3x3.launches.value - launches[0] == b2
+        assert fused_attention.launches.value - launches[1] == b1
+        assert (_graph_counts() - counts).tolist() == ([0, 3, 0] if graphed else [0, 0, 0])
+        if graphed:
+            ungraph(engine)
+    for key, want in runs[1].items():
+        assert np.array_equal(runs[0][key], want), key
+    return runs[0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -425,10 +452,7 @@ def test_engine_on_card_matches_cpu_and_launches_the_kernels(cuda):
     imgs = np.random.default_rng(0).integers(0, 256, (3, 128, 128, 3),
                                              dtype=np.uint8)
     card = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda)
-    n_conv, n_mha = conv3x3.launches.value, fused_attention.launches.value
-    got = card.predict(imgs)
-    assert conv3x3.launches.value - n_conv == 13
-    assert fused_attention.launches.value - n_mha == 24
+    got = _graphed_then_eager(card, imgs, 13, 24)
     want = InferenceEngine(cfg, assets=assets, buckets=(4,), device="cpu").predict(imgs)
     for key, ref in want.items():
         assert got[key].shape == ref.shape
@@ -446,11 +470,8 @@ def test_bf16_decoder_engine_runs_on_the_card(cuda):
                   "graph_layer_num": 2}})
     assets = make_synthetic_assets(0)
     imgs = np.random.default_rng(1).integers(0, 256, (4, 128, 128, 3), dtype=np.uint8)
-    n_conv, n_mha = conv3x3.launches.value, fused_attention.launches.value
-    got = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda,
-                          decoder_bf16=True).predict(imgs)
-    assert conv3x3.launches.value - n_conv == 13
-    assert fused_attention.launches.value - n_mha == 24
+    got = _graphed_then_eager(InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda,
+                                              decoder_bf16=True), imgs, 13, 24)
     cfg.model.decoder_f32 = False
     ref = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda).predict(imgs)
     for key, want in ref.items():
@@ -474,14 +495,136 @@ def test_hrnet_and_vit_engines_on_card_match_cpu(cuda, monkeypatch, encoder, siz
     assets = make_synthetic_assets(0)
     imgs = np.random.default_rng(1).integers(0, 256, (3, size, size, 3), dtype=np.uint8)
     card = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda)
-    n_conv, n_mha = conv3x3.launches.value, fused_attention.launches.value
-    got = card.predict(imgs)
-    assert conv3x3.launches.value - n_conv == b2
-    assert fused_attention.launches.value - n_mha == b1
+    got = _graphed_then_eager(card, imgs, b2, b1)
     want = InferenceEngine(cfg, assets=assets, buckets=(4,), device="cpu").predict(imgs)
     for key, ref in want.items():
         err = np.abs(got[key] - ref).max() / max(np.abs(ref).max(), 1e-6)
         assert err <= 1e-4, f"{key}: rel max|Δ| {err:.3e}"
+
+
+def _graph_engine(cuda, encoder, **kw):
+    cfg = load_config(overrides={
+        "model": {"encoder": encoder, "img_size": 128, "grid_size": 4, "graph_layer_num": 2},
+        "train": {"precision": "f32"}})
+    return InferenceEngine(cfg, assets=make_synthetic_assets(0), buckets=(2, 4), device=cuda, **kw)
+
+
+@pytest.mark.parametrize("encoder,b2,b1", [("resnet18", 13, 24), ("hrnet_w18", 216, 24)])
+def test_engine_graphs_replay_the_eager_answers(cuda, encoder, b2, b1):
+    """An engine on buckets (2, 4) captures both buckets' graphs as it is
+    built (each part run once eagerly, then captured). Two `predict`s
+    of 10 images (chunks 4, 4, 2) replay every part; a third, the eager
+    parts put back (`ungraph`), runs them eagerly. Answers equal bit for
+    bit (chunk i+1 queued before chunk i's copy back: the copy out of the
+    static outputs), B1 and B2 launches a forward unchanged, and the
+    graphs' counters (captures, replays, eager part-calls)."""
+    counts = _graph_counts()
+    engine = _graph_engine(cuda, encoder)
+    assert (_graph_counts() - counts).tolist() == [6, 0, 6]
+    imgs = np.random.default_rng(3).integers(0, 256, (10, 128, 128, 3), dtype=np.uint8)
+    runs = []
+    for graphed in (True, True, False):
+        if not graphed:
+            ungraph(engine)
+        counts = _graph_counts()
+        before = (conv3x3.launches.value, sum(_routes().values()), fused_attention.launches.value)
+        runs.append(engine.predict(imgs))
+        after = (conv3x3.launches.value, sum(_routes().values()), fused_attention.launches.value)
+        assert np.subtract(after, before).tolist() == [3 * b2, 3 * b2, 3 * b1]
+        assert (_graph_counts() - counts).tolist() == ([0, 9, 0] if graphed else [0, 0, 0])
+    for run in runs[:-1]:
+        for key, want in runs[-1].items():
+            assert np.isfinite(want).all() and np.array_equal(run[key], want), key
+    v = runs[0]["verts3d_left"]
+    assert not np.array_equal(v[:2], v[4:6]) and not np.array_equal(v[4:6], v[8:])
+
+
+def test_engine_graph_hooks_fire_with_the_live_tensors(cuda):
+    """Hooks registered after the capture (a forward pre-hook on the model,
+    pre and post on its decoder) fire once a forward, with the arguments and
+    results of that forward; the forwards replay, none runs eagerly."""
+    engine = _graph_engine(cuda, "resnet18")
+    imgs = np.random.default_rng(4).integers(0, 256, (10, 128, 128, 3), dtype=np.uint8)
+    seen = {"model": [], "pre": [], "post": []}
+    hooks = [
+        engine.model.register_forward_pre_hook(lambda m, a: seen["model"].append(a[0].shape[0])),
+        engine.model.decoder.register_forward_pre_hook(
+            lambda m, a: seen["pre"].append(a[0].clone())),
+        engine.model.decoder.register_forward_hook(
+            lambda m, a, out: seen["post"].append(out.verts3d["left"].clone()))]
+    counts = _graph_counts()
+    got = engine.predict(imgs)
+    for h in hooks:
+        h.remove()
+    assert (_graph_counts() - counts).tolist() == [0, 9, 0]
+    assert seen["model"] == [4, 4, 2] and [t.shape[0] for t in seen["pre"]] == [4, 4, 2]
+    assert all(torch.isfinite(t).all() for t in seen["pre"])
+    assert not torch.equal(seen["pre"][0], seen["pre"][1])
+    post = torch.cat([t[:n] for t, n in zip(seen["post"], (4, 4, 2))]).cpu().numpy()
+    assert np.array_equal(post, got["verts3d_left"])
+
+
+def test_engine_graphs_serve_threads_their_own_answers(cuda):
+    """Eight threads (more than the cores a card test runs on) sharing one
+    graphed engine, no `warmup()` called, the interpreter switching every
+    10 µs, while a second engine is built on the card and captures its
+    graphs: each `predict` gets the answers a lone call gives its images,
+    bit for bit (the lock holds a forward's replays and its copy out
+    together; the capture, thread-local, lets the serving threads
+    allocate), and the second engine's replays equal its eager answers."""
+    import sys
+    import threading
+
+    engine = _graph_engine(cuda, "resnet18")
+    rng = np.random.default_rng(6)
+    sets = [rng.integers(0, 256, (n, 128, 128, 3), dtype=np.uint8) for n in (2, 4, 6, 10)]
+    want = [engine.predict(imgs) for imgs in sets]
+    bad, done, stop = [], [], threading.Event()
+
+    def serve(t):
+        i = 0
+        while i < 6 or not stop.is_set():
+            k = (t + i) % len(sets)
+            got = engine.predict(sets[k])
+            if not all(np.array_equal(got[key], want[k][key]) for key in got):
+                bad.append((t, i))
+            i += 1
+        done.append(t)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    threads = [threading.Thread(target=serve, args=(t,)) for t in range(8)]
+    try:
+        for th in threads:
+            th.start()
+        other = _graph_engine(cuda, "resnet18", seed=7)
+        mine = other.predict(sets[2])
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=300)
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads)
+    assert sorted(done) == list(range(8)) and not bad, bad
+    ungraph(other)
+    for key, ref in other.predict(sets[2]).items():
+        assert np.array_equal(mine[key], ref), key
+
+
+def test_engine_graphs_follow_weights_loaded_in_place(cuda):
+    """`engine.model.load_state_dict(other)` after the capture: the replays
+    read the new weights, equal bit for bit to an engine built on them."""
+    engine = _graph_engine(cuda, "resnet18")
+    imgs = np.random.default_rng(5).integers(0, 256, (4, 128, 128, 3), dtype=np.uint8)
+    old = engine.predict(imgs)
+    other = _graph_engine(cuda, "resnet18", seed=5)
+    want = other.predict(imgs)
+    counts = _graph_counts()
+    engine.model.load_state_dict(other.model.state_dict())
+    got = engine.predict(imgs)
+    assert (_graph_counts() - counts).tolist() == [0, 3, 0]
+    for key, ref in want.items():
+        assert np.array_equal(got[key], ref) and not np.array_equal(got[key], old[key]), key
 
 
 def _mesh(name, device):
@@ -559,10 +702,7 @@ def test_decoder_variants_on_card_match_cpu(cuda, override, b1):
     assets = make_synthetic_assets(0)
     imgs = np.random.default_rng(2).integers(0, 256, (3, 128, 128, 3), dtype=np.uint8)
     card = InferenceEngine(cfg, assets=assets, buckets=(4,), device=cuda)
-    n_conv, n_mha = conv3x3.launches.value, fused_attention.launches.value
-    got = card.predict(imgs)
-    assert conv3x3.launches.value - n_conv == 13
-    assert fused_attention.launches.value - n_mha == b1
+    got = _graphed_then_eager(card, imgs, 13, b1)
     wants = [InferenceEngine(cfg, assets=assets, buckets=(4,), device="cpu").predict(imgs)]
     if "paired_lr" in override:
         unpaired = load_config(overrides={

@@ -2,7 +2,7 @@
 counters of the serving path and the model, on the CPU at a small config:
 nesting and parents, `drain`, tracing off (the default) under a profiler,
 `predict`'s spans and ranges once turned on, the rows counters against the
-buckets, and the queue spans of `BatchingServer` on a profiler trace's
+buckets, no CUDA graph on the CPU, and the queue spans of `BatchingServer` on a profiler trace's
 clock."""
 
 import json
@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 from renderih_tpu_torch.assets import make_synthetic_assets
 from renderih_tpu_torch.config import load_config
 from renderih_tpu_torch.kernels import _build
-from renderih_tpu_torch.serve import BatchingServer, InferenceEngine
+from renderih_tpu_torch.serve import GRAPHED_PARTS, BatchingServer, InferenceEngine
 from renderih_tpu_torch.utils import trace
 
 OVERRIDES = {
@@ -146,6 +146,20 @@ def test_the_launch_counters_are_the_tracers_counter_type():
     assert c.value == 5
     c.reset()
     assert c.value == 0
+    with trace.hold() as held:  # a CUDA graph's capture: held back, not counted
+        c.add(2)
+    c.add()
+    assert (c.value, held) == (1, [(c, 2)])
+
+
+def test_an_engine_on_the_cpu_captures_no_graph(engine):
+    """CUDA graphs are the card's: on the CPU the model's parts keep their
+    own `forward`, and a `predict` captures, replays and counts nothing."""
+    names = ("engine.graph_captures", "engine.graph_replays", "engine.eager_forwards")
+    before = [trace.counters()[n] for n in names]
+    engine.predict(_images(1))
+    assert [trace.counters()[n] for n in names] == before
+    assert not any("forward" in vars(getattr(engine.model, p)) for p in GRAPHED_PARTS)
 
 
 def test_queue_spans_land_on_the_trace_clock(engine, tmp_path):
