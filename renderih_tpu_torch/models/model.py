@@ -36,7 +36,7 @@ from renderih_tpu_torch.models.dual_graph import GcnResBlock
 from renderih_tpu_torch.models.hrnet import HRNetEncoder, HRNetMid
 from renderih_tpu_torch.models.layers import lecun_normal_
 from renderih_tpu_torch.models.resnet import AuxDecoderHead, ResNet, ResNetMid
-from renderih_tpu_torch.models.vit import ViTEncoder, ViTMid, vit_pyramid
+from renderih_tpu_torch.models.vit import ViTEncoder, ViTMid, vit_head
 from renderih_tpu_torch.utils import trace
 
 
@@ -118,6 +118,13 @@ class HandNet(nn.Module):
             self.hms_head = AuxDecoderHead(pyramid_dims[0], 42)
             self.dp_head = AuxDecoderHead(pyramid_dims[0], 7)
 
+    def vit_head(self, f16: torch.Tensor, x: torch.Tensor) -> list:
+        """The ViT wrapper's pyramid head on the trunk's f16 and the image
+        (`models/vit.py:vit_head`): a method of the network, whose top level
+        holds the head's modules, so that the serving engine can graph it as
+        one call."""
+        return vit_head(self, f16, x)
+
     def forward(self, img: torch.Tensor, pe_left: torch.Tensor,
                 pe_right: torch.Tensor,
                 bbox_info: torch.Tensor | None = None, aux: bool = False) -> DecoderOutput:
@@ -128,7 +135,13 @@ class HandNet(nn.Module):
         x = img.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, channels_last
         # each span holds its child's call alone, the casts between them outside
         with trace.span("model.encoder"):
-            pyramid = vit_pyramid(self, x) if self.vit else self.encoder(x)
+            if self.vit:
+                with trace.span("model.vit.trunk"):
+                    f16 = self.encoder(x)
+                with trace.span("model.vit.pyramid"):
+                    pyramid = self.vit_head(f16, x)
+            else:
+                pyramid = self.encoder(x)
         # The decoder reads the first len(verts_nums) maps. Training projects
         # all of them, as the JAX package does: the unread map's BatchNorm
         # still updates its running statistics there.

@@ -162,15 +162,19 @@ class PooledKVAttention(nn.Module):
         return out.reshape(b, h // 2, w // 2, c).permute(0, 3, 1, 2)
 
 
-def vit_pyramid(m: nn.Module, img: torch.Tensor) -> list:
+def vit_head(m: nn.Module, f16: torch.Tensor, img: torch.Tensor) -> list:
     """[f8, f16, f32] of the ViT wrapper whose children `m` holds
-    (`encoder`, `patch_embed`, `conv1`, `downsample`), coarsest first,
-    computing in img's dtype."""
-    f16 = m.encoder(img)
+    (`patch_embed`, `conv1`, `downsample`) from the trunk's f16, coarsest
+    first, computing in img's dtype."""
     up = f16.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)  # nearest 2x
     f32 = m.conv1((m.patch_embed(img) + up).to(img.dtype))
     f8 = m.downsample(f16, img.dtype)
     return [f8, f16, f32]
+
+
+def vit_pyramid(m: nn.Module, img: torch.Tensor) -> list:
+    """`vit_head` on the output of `m.encoder`, the trunk."""
+    return vit_head(m, m.encoder(img), img)
 
 
 class ViTEncoder(nn.Module):

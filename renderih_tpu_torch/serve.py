@@ -27,8 +27,12 @@ the first.
 CUDA graphs. On the card the engine replays, for each bucket, one
 captured CUDA graph per model part in place of launching the part's
 kernels from Python: the `forward` of `encoder`, `mid_model` and `decoder`
-on each replica (`GRAPHED_PARTS`; the ViT's small `patch_embed`, `conv1`
-and `downsample` stay eager). The model's own `__call__` is left alone, so
+on each replica (`GRAPHED_PARTS`) and, for a ViT, the wrapper's pyramid
+head `vit_head` (`GRAPHED_METHODS`: the stride-8 patch embedding, the
+nearest-2x add, `conv1` and `downsample`, a method of the model itself,
+whose top level holds those modules under their upstream names), so that
+every kernel of the forward but the input's normalisation and the casts
+between the parts sits in a graph. The model's own `__call__` is left alone, so
 forward hooks on the model or on a part, registered before or after a
 capture, fire on every call with the live arguments and results. A part's
 graph is keyed by what its call's flattened arguments show: each tensor's
@@ -104,6 +108,13 @@ _CAPTURES = trace.counter("engine.graph_captures")  # CUDA graphs captured, one 
 _REPLAYS = trace.counter("engine.graph_replays")    # part-calls replayed from a graph
 _EAGER = trace.counter("engine.eager_forwards")     # part-calls run eagerly on the card
 GRAPHED_PARTS = ("encoder", "mid_model", "decoder")
+GRAPHED_METHODS = ("vit_head",)  # methods of a ViT model itself
+
+
+def _graphed_calls(model: torch.nn.Module) -> list:
+    """(owner, attribute) of each call of `model` that the engine graphs."""
+    return ([(getattr(model, name), "forward") for name in GRAPHED_PARTS]
+            + [(model, name) for name in GRAPHED_METHODS if model.vit])
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -179,8 +190,8 @@ class InferenceEngine:
         any other thread can reach the engine (module docstring)."""
         self._graphs = [_DeviceGraphs(torch.device(d)) for d in self.mesh.devices]
         for (replica, _), graphs in zip(self._replicas, self._graphs):
-            for name in GRAPHED_PARTS:
-                graphs.install(getattr(replica, name))
+            for owner, attr in _graphed_calls(replica):
+                graphs.install(owner, attr)
             graphs.capturing = True
         try:
             self.warmup()
@@ -295,11 +306,11 @@ class _DeviceGraphs:
             self.pool = torch.cuda.graph_pool_handle()
         self.owned: dict = {}  # id -> static output tensor of a graph here
 
-    def install(self, module: torch.nn.Module) -> None:
-        """Put the graphed call in place of `module.forward`."""
-        eager, graphs = module.forward, {}
+    def install(self, module: torch.nn.Module, attr: str = "forward") -> None:
+        """Put the graphed call in place of `module`'s method `attr`."""
+        eager, graphs = getattr(module, attr), {}
 
-        def forward(*args, **kwargs):
+        def call(*args, **kwargs):
             graph = None
             if not (module.training or torch.is_grad_enabled()):
                 leaves, spec = tree_flatten((args, kwargs))
@@ -315,7 +326,7 @@ class _DeviceGraphs:
             with torch.cuda.device(self.device):
                 return graph.replay(leaves)
 
-        module.forward = forward
+        setattr(module, attr, call)
 
     def _capture(self, fn, leaves: list, spec) -> tuple:
         """`fn` on `leaves` once eagerly on the capture stream, ordered with
@@ -352,8 +363,8 @@ def ungraph(engine: InferenceEngine) -> None:
     graphs dropped: for code that patches the model's functions or hooks
     the parts' inner modules between calls, which a replay would not see."""
     for replica, _ in engine._replicas:
-        for name in GRAPHED_PARTS:
-            vars(getattr(replica, name)).pop("forward", None)
+        for owner, attr in _graphed_calls(replica):
+            vars(owner).pop(attr, None)
     engine._graphs = []
 
 

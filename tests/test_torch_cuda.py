@@ -56,8 +56,9 @@ def _graphed_then_eager(engine, imgs, b2, b1):
     """`engine.predict(imgs)` (one chunk) replayed from the graphs the
     engine captured as it was built, then with its eager parts put back
     (`ungraph`): each call launches B2 `b2` and B1 `b1` times, the first
-    replays its three parts and runs none eagerly, and the answers are
-    equal bit for bit. The replayed answers."""
+    replays its parts (three; four with a ViT's pyramid head) and runs none
+    eagerly, and the answers are equal bit for bit. The replayed answers."""
+    parts = 4 if engine.model.vit else 3
     runs = []
     for graphed in (True, False):
         counts = _graph_counts()
@@ -65,7 +66,7 @@ def _graphed_then_eager(engine, imgs, b2, b1):
         runs.append(engine.predict(imgs))
         assert conv3x3.launches.value - launches[0] == b2
         assert fused_attention.launches.value - launches[1] == b1
-        assert (_graph_counts() - counts).tolist() == ([0, 3, 0] if graphed else [0, 0, 0])
+        assert (_graph_counts() - counts).tolist() == ([0, parts, 0] if graphed else [0, 0, 0])
         if graphed:
             ungraph(engine)
     for key, want in runs[1].items():
@@ -500,6 +501,40 @@ def test_hrnet_and_vit_engines_on_card_match_cpu(cuda, monkeypatch, encoder, siz
     for key, ref in want.items():
         err = np.abs(got[key] - ref).max() / max(np.abs(ref).max(), 1e-6)
         assert err <= 1e-4, f"{key}: rel max|Δ| {err:.3e}"
+
+
+def test_vit_large_engine_replays_every_part_at_every_bucket(cuda):
+    """ViT-L (24 blocks, 1024 wide; bf16 encoder, f32 decoder, as the
+    benchmark's `vit_l_graph`) on the served buckets (1, 8, 32, 128): built,
+    the engine has captured four parts a bucket (the trunk, the pyramid
+    head, the mid model, the decoder), each run once eagerly first; then a
+    `predict` at each bucket replays its four graphs and runs no part
+    eagerly, with 49 B1 launches a forward (24 in the trunk, 1 in the pooled
+    block, 24 in the decoder) and no B2; the eager parts put back
+    (`ungraph`), every bucket's answers are the same bit for bit."""
+    cfg = load_config(overrides={"model": {"encoder": "vit_large"},
+                                 "train": {"precision": "bf16"}})
+    counts = _graph_counts()
+    engine = InferenceEngine(cfg, assets=make_synthetic_assets(0), device=cuda)
+    assert engine.buckets == (1, 8, 32, 128)
+    assert (_graph_counts() - counts).tolist() == [16, 0, 16]
+    rng = np.random.default_rng(8)
+    imgs = {b: rng.integers(0, 256, (b, 256, 256, 3), dtype=np.uint8) for b in engine.buckets}
+    graphed = {}
+    for b, x in imgs.items():
+        counts = _graph_counts()
+        launches = (conv3x3.launches.value, fused_attention.launches.value)
+        graphed[b] = engine.predict(x)
+        assert (_graph_counts() - counts).tolist() == [0, 4, 0], b
+        assert (conv3x3.launches.value - launches[0],
+                fused_attention.launches.value - launches[1]) == (0, 49), b
+    ungraph(engine)
+    for b, x in imgs.items():
+        counts = _graph_counts()
+        want = engine.predict(x)
+        assert (_graph_counts() - counts).tolist() == [0, 0, 0]
+        for key, ref in want.items():
+            assert np.isfinite(ref).all() and np.array_equal(graphed[b][key], ref), (b, key)
 
 
 def _graph_engine(cuda, encoder, **kw):

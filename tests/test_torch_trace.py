@@ -116,6 +116,33 @@ def test_on_predict_records_its_spans_with_and_without_the_profiler(engine, tmp_
     assert sorted(e["name"] for e in ranges) == sorted(trace.PREFIX + n for n in names)
 
 
+def test_vit_spans_hold_the_trunk_then_the_pyramid_inside_the_encoder(monkeypatch):
+    """A one-block ViT at 64 wide: each forward's `model.encoder` holds a
+    `model.vit.trunk` and then a `model.vit.pyramid`, once each, and the
+    other model spans as the CNN encoders have them."""
+    from renderih_tpu_torch.models import vit
+
+    monkeypatch.setitem(vit._VIT_CONFIGS, "vit_trace_test",
+                        dict(embed_dim=64, depth=1, num_heads=2))
+    overrides = dict(OVERRIDES, model=dict(OVERRIDES["model"], encoder="vit_trace_test"))
+    eng = InferenceEngine(load_config(overrides=overrides), make_synthetic_assets(0),
+                          buckets=(1, 4), device="cpu")
+    trace.enable(True)
+    eng.predict(_images(5))
+    spans = trace.drain()
+    vit_spans = {"model.vit.trunk", "model.vit.pyramid"}
+    assert {s.name for s in spans} == ENGINE_SPANS | vit_spans
+    by_id = {s.id: s for s in spans}
+    encoders = [s for s in spans if s.name == "model.encoder"]
+    assert len(encoders) == 2  # chunks of 4 and 1
+    for enc in encoders:
+        inner = sorted((s for s in spans if s.parent == enc.id), key=lambda s: s.start_ns)
+        assert [s.name for s in inner] == ["model.vit.trunk", "model.vit.pyramid"]
+        assert enc.start_ns <= inner[0].start_ns <= inner[0].end_ns <= inner[1].start_ns
+        assert inner[1].end_ns <= enc.end_ns
+    assert all(by_id[s.parent].name == "model.encoder" for s in spans if s.name in vit_spans)
+
+
 def test_rows_counters_count_the_buckets_of_predict(monkeypatch):
     """A `predict` of 5 and of 130 images on the default buckets (1, 8, 32,
     128): 5 -> one forward at 8; 130 -> 128, then 2 at 8."""
