@@ -158,8 +158,18 @@ def add_noise(img: torch.Tensor, draws: dict, noise: float = 0.0) -> torch.Tenso
     return torch.clamp(out, 0.0, _SCALE)
 
 
+_IMAGENET: dict = {}  # (dtype, device) -> (mean, std), built at the first call there
+
+
 def normalize_imagenet(img01: torch.Tensor) -> torch.Tensor:
-    """[0,1] RGB, channels last (..., 3) -> ImageNet-normalized."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=img01.dtype, device=img01.device)
-    std = torch.tensor(IMAGENET_STD, dtype=img01.dtype, device=img01.device)
+    """[0,1] RGB, channels last (..., 3) -> ImageNet-normalized. The
+    constants are built once for each dtype and device: building them on a
+    card is a copy that waits for its stream."""
+    key = (img01.dtype, img01.device)
+    if key not in _IMAGENET:
+        with torch.inference_mode(False):  # usable by autograd, whoever calls first
+            _IMAGENET.setdefault(key, tuple(
+                torch.tensor(c, dtype=img01.dtype, device=img01.device)
+                for c in (IMAGENET_MEAN, IMAGENET_STD)))
+    mean, std = _IMAGENET[key]
     return (img01 - mean) / std

@@ -43,10 +43,14 @@ beside a caller's thread: each key runs once eagerly on the engine's own
 capture stream (the warm-up cuBLAS and cuDNN need there), is captured
 there in thread-local mode (a thread serving another engine on the card
 may allocate meanwhile), and the eager run's answer is copied into the
-graph's static outputs. The stream is the engine's alone because cuBLAS
-keeps one workspace for each thread's handle and stream, and every graph
-captured there reads and writes it: on a shared stream another engine's
-warm-up or replays would race this engine's replays on it. cuBLAS keeps
+graph's static outputs. Python's cyclic collector is held off through
+every capture (`_collector_paused`): a graphed part and its method form a
+cycle, so a dropped engine's graphs wait for a collection, and one that
+frees them inside a capture invalidates the capture. The stream is the
+engine's alone because cuBLAS keeps one workspace for each thread's handle
+and stream, and every graph captured there reads and writes it: on a
+shared stream another engine's warm-up or replays would race this
+engine's replays on it. cuBLAS keeps
 that workspace, about 35 MB, for the life of the process; the streams come
 from PyTorch's pool, 32 a card, which bounds how many there are, and a
 33rd live engine on one card would share the first one's. A later call
@@ -75,6 +79,33 @@ they are, so weights loaded in place (`engine.model.load_state_dict`) keep
 them valid; moving the model (`.to`) or assigning new parameter tensors
 does not. On the CPU nothing of this runs.
 
+Transfers. On the card a chunk goes in and out through one of two staging
+slots (`_Transfers`, `_Slot`), each sized to the largest bucket (a bucket
+uses a prefix): pinned host images, their device copy (on a mesh, each
+device's contiguous slice) and pinned host outputs. The chunk is copied
+into its slot's pinned images (the rows past it filled there with its last
+image) once the slot's previous upload is done, and uploaded on an upload
+stream of the device's own, which the device's current stream waits for
+before it normalises; the upload waits for the slot's previous forward to
+be queued. The forward runs on the current stream (forward hooks see its
+live tensors), and `predict` queues the copy of `_forward`'s eight
+outputs, whatever it returned, into the slot's pinned outputs on a
+copy-back stream that waits for the current stream (the tensors are held
+for it with `record_stream`); the upload and copy-back streams are
+separate, so an upload never queues behind a copy back, and thus behind
+the forward it waits for. Nothing between queuing chunk i and queuing
+chunk i+1 waits for chunk i: chunk i+1 crosses to the card while chunk i
+runs, and the host waits for chunk i's copy, then copies its rows into
+the call's own result arrays, while chunk i+1 runs. No array returned
+aliases a slot. One `predict` at a time moves data through an engine's
+slots: it holds `_transfer_lock` for the whole call (as `warmup` does),
+so two calls in flight never share a slot. The counters
+`engine.staged_chunks` (chunks uploaded through a slot) and
+`engine.overlapped_uploads` (of them, those issued while the last
+forward was still running, read by `Event.query()`) give the overlap
+share. On the CPU `from_numpy` and `.numpy()` share memory with the
+arrays, and none of this runs.
+
     engine = InferenceEngine(cfg)
     out = engine.predict(images_u8)          # (N,256,256,3) uint8 -> dict
     server = BatchingServer(engine)
@@ -83,7 +114,9 @@ does not. On the CPU nothing of this runs.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import gc
 import itertools
 import queue
 import threading
@@ -107,6 +140,8 @@ _PAD_ROWS = trace.counter("engine.pad_rows")  # and the rows padding them to the
 _CAPTURES = trace.counter("engine.graph_captures")  # CUDA graphs captured, one a part and key
 _REPLAYS = trace.counter("engine.graph_replays")    # part-calls replayed from a graph
 _EAGER = trace.counter("engine.eager_forwards")     # part-calls run eagerly on the card
+_STAGED = trace.counter("engine.staged_chunks")     # chunks uploaded through a staging slot
+_OVERLAPPED = trace.counter("engine.overlapped_uploads")  # of them, while the last forward ran
 GRAPHED_PARTS = ("encoder", "mid_model", "decoder")
 GRAPHED_METHODS = ("vit_head",)  # methods of a ViT model itself
 
@@ -182,7 +217,11 @@ class InferenceEngine:
                           zip(self.mesh.devices, replicate(self.model, self.mesh.devices))]
         self.lock = threading.Lock()
         self._graphs: list = []
+        self._transfers = None  # on the CPU `from_numpy` and `.numpy()` copy nothing
+        self._transfer_lock = contextlib.nullcontext()
         if self.device.type == "cuda":
+            self._transfers = _Transfers(self.mesh.devices, self.buckets[-1])
+            self._transfer_lock = threading.Lock()
             self._capture_graphs()
 
     def _capture_graphs(self) -> None:
@@ -202,16 +241,23 @@ class InferenceEngine:
     def _forward(self, img_u8: np.ndarray) -> dict:
         """`img_u8` padded up to its bucket with copies of its last image,
         the bucket's slices on the mesh's devices (every forward queued
-        before any is gathered), gathered in order on the first device."""
+        before any is gathered), gathered in order on the first device. On
+        the card the images go through the staging slot of the chunk in
+        flight, and the caller holds `_transfer_lock` (`predict`, `warmup`)."""
         with trace.span("engine.upload"):
             b = self._bucket(len(img_u8))
-            if len(img_u8) < b:
-                pad = np.repeat(img_u8[-1:], b - len(img_u8), axis=0)
-                img_u8 = np.concatenate([img_u8, pad], axis=0)
-            parts = split_batch(self.mesh, torch.from_numpy(np.ascontiguousarray(img_u8)))
+            if self._transfers is not None:
+                parts = self._transfers.stage(img_u8, b)
+            else:
+                if len(img_u8) < b:
+                    pad = np.repeat(img_u8[-1:], b - len(img_u8), axis=0)
+                    img_u8 = np.concatenate([img_u8, pad], axis=0)
+                parts = split_batch(self.mesh, torch.from_numpy(np.ascontiguousarray(img_u8)))
         with trace.span("engine.forward"), torch.inference_mode(), self.lock:
             outs = [model(normalize_imagenet(x.float() / 255.0), **kwargs)
                     for (model, kwargs), x in zip(self._replicas, parts)]
+            if self._transfers is not None:
+                self._transfers.forwarded()
             out = {f"{key}_{hand}": gather([getattr(o, key)[hand] for o in outs], self.device)
                    for key in ("verts3d", "verts2d", "scale", "trans2d")
                    for hand in ("left", "right")}
@@ -221,9 +267,10 @@ class InferenceEngine:
     def warmup(self) -> None:
         """Run every bucket once (first-request latency -> steady state)."""
         size = self.cfg.model.img_size
-        for b in self.buckets:
-            out = self._forward(np.zeros((b, size, size, 3), np.uint8))
-            next(iter(out.values())).cpu()
+        with self._transfer_lock:
+            for b in self.buckets:
+                out = self._forward(np.zeros((b, size, size, 3), np.uint8))
+                next(iter(out.values())).cpu()
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -232,10 +279,13 @@ class InferenceEngine:
         return self.buckets[-1]
 
     def predict(self, images_u8: np.ndarray) -> dict:
-        """images_u8: (N, H, W, 3) uint8 -> dict of numpy outputs, length N.
+        """images_u8: (N, H, W, 3) uint8 -> dict of numpy outputs, length N,
+        arrays of this call's own.
 
-        Chunk i+1 is queued on the device before chunk i's results are
-        copied back, so the copy overlaps the next chunk's compute.
+        Chunk i+1 is queued on the device before the host waits for chunk
+        i's results; on the card chunk i+1's upload then overlaps chunk i's
+        forward, and chunk i's copy into the result overlaps chunk i+1's
+        forward (module docstring).
         """
         with trace.span("engine.predict"):
             images_u8 = np.asarray(images_u8)
@@ -248,21 +298,125 @@ class InferenceEngine:
                 take = min(n - start, b)
                 _ROWS.add(take)
                 _PAD_ROWS.add(b - take)
-                return self._forward(images_u8[start:start + take]), take
+                out = self._forward(images_u8[start:start + take])
+                if self._transfers is not None:
+                    return start, take, self._transfers.copy_back(out, take)
+                return start, take, lambda: {k: v[:take].cpu().numpy() for k, v in out.items()}
 
-            outs: list[dict] = []
-            pending, take = dispatch(0)
-            start = take
-            while True:
-                nxt = dispatch(start) if start < n else None
-                with trace.span("engine.copy_back"):
-                    outs.append({k: v[:take].cpu().numpy() for k, v in pending.items()})
-                if nxt is None:
-                    break
-                pending, take = nxt
-                start += take
-            with trace.span("engine.concat"):
-                return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+            result: dict = {}
+            with self._transfer_lock:
+                pending = dispatch(0)
+                while pending is not None:
+                    start, take, fetch = pending
+                    end = start + take
+                    pending = dispatch(end) if end < n else None
+                    with trace.span("engine.copy_back"):
+                        for k, v in fetch().items():
+                            if k not in result:
+                                result[k] = np.empty((n, *v.shape[1:]), v.dtype)
+                            result[k][start:end] = v
+            return result
+
+
+class _Slot:
+    """A staging slot of `_Transfers`: pinned host images and their copy on
+    each device of the mesh (a contiguous slice each), made at the first
+    chunk of their image shape; pinned host outputs, made at a key's first
+    copy back; and the events that order their reuse."""
+
+    def __init__(self, devices: tuple, rows: int):
+        self.devices, self.rows = devices, rows
+        self.pinned, self.images = None, None  # (rows, H, W, 3) uint8, and as numpy
+        self.on_device: list = []               # (rows / n, H, W, 3) uint8 on each device
+        self.outputs: dict = {}                 # key -> pinned (rows, ...)
+        self.uploaded = [torch.cuda.Event() for _ in devices]  # upload stream: H2D done
+        self.consumed = [torch.cuda.Event() for _ in devices]  # compute: forward queued
+        self.copied = torch.cuda.Event()                        # copy-back stream: D2H done
+
+    def allocate(self, shape: tuple) -> None:
+        for ev in self.consumed:
+            ev.synchronize()
+        self.pinned = torch.empty((self.rows, *shape), dtype=torch.uint8, pin_memory=True)
+        self.images = self.pinned.numpy()
+        per = self.rows // len(self.devices)
+        self.on_device = [torch.empty((per, *shape), dtype=torch.uint8, device=d)
+                          for d in self.devices]
+
+    def output(self, key: str, v: torch.Tensor) -> torch.Tensor:
+        if key not in self.outputs:
+            self.outputs[key] = torch.empty((self.rows, *v.shape[1:]), dtype=v.dtype,
+                                            pin_memory=True)
+        return self.outputs[key]
+
+
+class _Transfers:
+    """The card's way in and out of an `InferenceEngine` (module docstring):
+    two staging slots, the chunk in flight using `slots[turn]`; an upload
+    stream on each mesh device and a copy-back stream on the first, both
+    high priority, so from a pool apart from the capture streams'. Used
+    under the engine's `_transfer_lock`."""
+
+    def __init__(self, devices: tuple, rows: int):
+        self.devices = devices
+        self.slots = [_Slot(devices, rows) for _ in range(2)]
+        self.turn = 0
+        self.uploads = [torch.cuda.Stream(d, priority=-1) for d in devices]
+        self.copies = torch.cuda.Stream(devices[0], priority=-1)
+        self.last_forward = None  # the last forward's `consumed` event on the first device
+
+    def stage(self, img_u8: np.ndarray, b: int) -> list:
+        """`img_u8` and `b - len(img_u8)` copies of its last image in the
+        slot's pinned images, a slice uploaded on each device's upload
+        stream, which each device's current stream waits for: the slices."""
+        slot, take = self.slots[self.turn], len(img_u8)
+        for ev in slot.uploaded:
+            ev.synchronize()  # the last upload from these pinned images is done
+        if slot.images is None or slot.images.shape[1:] != img_u8.shape[1:]:
+            slot.allocate(img_u8.shape[1:])
+        np.copyto(slot.images[:take], img_u8)
+        slot.images[take:b] = img_u8[-1]
+        _STAGED.add()
+        if self.last_forward is not None and not self.last_forward.query():
+            _OVERLAPPED.add()
+        step, parts = b // len(self.devices), []
+        for i, (dev, stream) in enumerate(zip(self.devices, self.uploads)):
+            x = slot.on_device[i][:step]
+            with torch.cuda.stream(stream):
+                stream.wait_event(slot.consumed[i])  # the last forward from x is queued
+                x.copy_(slot.pinned[i * step:(i + 1) * step], non_blocking=True)
+                slot.uploaded[i].record(stream)
+            torch.cuda.current_stream(dev).wait_event(slot.uploaded[i])
+            parts.append(x)
+        return parts
+
+    def forwarded(self) -> None:
+        """Mark on each device's current stream that the chunk in flight's
+        forward, which reads the slot's device images first, is queued."""
+        slot = self.slots[self.turn]
+        for ev, dev in zip(slot.consumed, self.devices):
+            ev.record(torch.cuda.current_stream(dev))
+        self.last_forward = slot.consumed[0]
+
+    def copy_back(self, out: dict, take: int):
+        """The first `take` rows of each of `out`'s tensors queued into the
+        slot's pinned outputs on the copy-back stream, behind all that the
+        first device's current stream holds; the turn passes to the other
+        slot. A function that waits for the copies and returns those rows
+        as numpy views of the pinned outputs."""
+        slot = self.slots[self.turn]
+        self.turn ^= 1
+        self.copies.wait_stream(torch.cuda.current_stream(self.devices[0]))
+        with torch.cuda.stream(self.copies):
+            for key, v in out.items():
+                v.record_stream(self.copies)  # not reused before the copy is done
+                slot.output(key, v)[:take].copy_(v[:take], non_blocking=True)
+            slot.copied.record(self.copies)
+
+        def fetch() -> dict:
+            slot.copied.synchronize()
+            return {key: slot.outputs[key][:take].numpy() for key in out}
+
+        return fetch
 
 
 def _key_of(leaf):
@@ -291,6 +445,28 @@ class _Graph:
             counter.add(n)
         _REPLAYS.add()
         return tree_unflatten(self.outputs, self.spec)
+
+
+_PAUSE = threading.Lock()
+_paused = [0, False]  # captures in flight in the process; the collector was on before them
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic collector off until the last capture in flight ends
+    (module docstring), then as it was."""
+    with _PAUSE:
+        if _paused[0] == 0:
+            _paused[1] = gc.isenabled()
+            gc.disable()
+        _paused[0] += 1
+    try:
+        yield
+    finally:
+        with _PAUSE:
+            _paused[0] -= 1
+            if _paused[0] == 0 and _paused[1]:
+                gc.enable()
 
 
 class _DeviceGraphs:
@@ -344,7 +520,7 @@ class _DeviceGraphs:
                 args, kwargs = tree_unflatten(leaves, spec)
                 answer = tree_flatten(fn(*args, **kwargs))[0]
             args, kwargs = tree_unflatten(inputs, spec)
-            with trace.hold() as held, torch.cuda.graph(
+            with _collector_paused(), trace.hold() as held, torch.cuda.graph(
                     graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
                 out = fn(*args, **kwargs)
             outputs, out_spec = tree_flatten(out)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels and main path on the card (marker `gpu`).
 
-Every test takes the `cuda` fixture, which skips where there is no card;
-elsewhere these tests are collected and skipped. This file imports no JAX,
+Every test takes the `cuda` fixture or the module's `staged_engine`, each
+of which skips where there is no card; elsewhere these tests are collected
+and skipped. This file imports no JAX,
 so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
@@ -644,6 +645,125 @@ def test_engine_graphs_serve_threads_their_own_answers(cuda):
     ungraph(other)
     for key, ref in other.predict(sets[2]).items():
         assert np.array_equal(mine[key], ref), key
+
+
+def test_engine_captures_with_the_cyclic_collector_off(cuda):
+    """An engine built while a dropped engine's graphed model waits for the
+    cyclic collector (a graphed part and its method form a cycle): the
+    collector is off through every capture, so no collection frees the old
+    graphs inside one (that invalidates the capture), on again after, and
+    the new engine's replays equal its eager answers."""
+    import gc
+
+    old = _graph_engine(cuda, "resnet18")
+    old.predict(np.zeros((4, 128, 128, 3), np.uint8))
+    del old
+    on, seen = gc.isenabled(), []
+
+    def record(module, args):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(record)
+    try:
+        engine = _graph_engine(cuda, "resnet18", seed=3)
+    finally:
+        hook.remove()
+    assert seen and not any(seen)
+    assert gc.isenabled() == on
+    imgs = np.random.default_rng(8).integers(0, 256, (4, 128, 128, 3), dtype=np.uint8)
+    _graphed_then_eager(engine, imgs, 13, 24)
+
+
+@pytest.fixture(scope="module")
+def staged_engine():
+    """A graphed resnet18 engine on the default buckets (1, 8, 32, 128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = load_config(overrides={
+        "model": {"encoder": "resnet18", "img_size": 128, "grid_size": 4, "graph_layer_num": 2},
+        "train": {"precision": "f32"}})
+    return InferenceEngine(cfg, assets=make_synthetic_assets(0), device="cuda")
+
+
+def _chunked_forward(engine, imgs):
+    """What `predict` returns, chunk by chunk from `_forward` with blocking
+    copies and no staging of outputs: the chunks of `predict` (the largest
+    bucket at a time, the rest at its bucket), concatenated."""
+    outs, start = [], 0
+    while start < len(imgs):
+        take = min(len(imgs) - start, engine.buckets[-1])
+        with engine._transfer_lock:
+            out = engine._forward(imgs[start:start + take])
+            outs.append({k: v[:take].cpu().numpy() for k, v in out.items()})
+        start += take
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+@pytest.mark.parametrize("n", [1, 5, 127, 128, 129, 256, 300])
+def test_engine_staged_predict_equals_its_forwards(staged_engine, n):
+    """`predict` of n images through the staging slots (pinned, double
+    buffered, uploads and copies back on their own streams) equals, bit for
+    bit, the same engine's chunk-by-chunk `_forward` copied back with
+    `.cpu()`; one staged chunk a chunk, no more overlapped than staged; the
+    arrays it returns are unchanged by two further calls (no slot aliased)."""
+    engine = staged_engine
+    rng = np.random.default_rng(n)
+    imgs = rng.integers(0, 256, (n, 128, 128, 3), dtype=np.uint8)
+    staged, overlapped = trace.counter("engine.staged_chunks"), trace.counter(
+        "engine.overlapped_uploads")
+    before = (staged.value, overlapped.value)
+    got = engine.predict(imgs)
+    chunks = -(-n // engine.buckets[-1])
+    assert staged.value - before[0] == chunks
+    assert 0 <= overlapped.value - before[1] <= chunks - 1
+    kept = {k: v.copy() for k, v in got.items()}
+    want = _chunked_forward(engine, imgs)
+    for _ in range(2):
+        engine.predict(rng.integers(0, 256, (n, 128, 128, 3), dtype=np.uint8))
+    for key, ref in want.items():
+        assert got[key].shape == (n, *ref.shape[1:]) and got[key].dtype == ref.dtype, key
+        assert np.array_equal(got[key], ref), key
+        assert np.array_equal(got[key], kept[key]), key
+
+
+def test_engine_staging_serves_two_threads_their_own_answers(staged_engine):
+    """Two threads predicting multi-chunk requests (129, 256 and 300
+    images) on one engine, the interpreter switching every 10 µs: each call
+    gets the answers a lone call gives its images, bit for bit, and keeps
+    them (the per-call transfer lock: two calls never share a slot)."""
+    import sys
+    import threading
+
+    engine = staged_engine
+    rng = np.random.default_rng(11)
+    sets = [rng.integers(0, 256, (n, 128, 128, 3), dtype=np.uint8) for n in (129, 256, 300)]
+    want = [engine.predict(imgs) for imgs in sets]
+    bad, done, kept = [], [], []
+
+    def serve(t):
+        for i in range(6):
+            k = (t + i) % len(sets)
+            got = engine.predict(sets[k])
+            kept.append((k, got))
+            if not all(np.array_equal(got[key], want[k][key]) for key in got):
+                bad.append((t, i))
+        done.append(t)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    threads = [threading.Thread(target=serve, args=(t,)) for t in range(2)]
+    try:
+        for th in threads:
+            th.start()
+    finally:
+        for th in threads:
+            th.join(timeout=300)
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads)
+    assert sorted(done) == [0, 1] and not bad, bad
+    for k, got in kept:
+        assert all(np.array_equal(got[key], want[k][key]) for key in got), k
 
 
 def test_engine_graphs_follow_weights_loaded_in_place(cuda):

@@ -2,9 +2,11 @@
 counters of the serving path and the model, on the CPU at a small config:
 nesting and parents, `drain`, tracing off (the default) under a profiler,
 `predict`'s spans and ranges once turned on, the rows counters against the
-buckets, no CUDA graph on the CPU, and the queue spans of `BatchingServer` on a profiler trace's
-clock."""
+buckets, no CUDA graph on the CPU, the cyclic collector held off across
+overlapping captures, and the queue spans of `BatchingServer` on a
+profiler trace's clock."""
 
+import gc
 import json
 import threading
 
@@ -17,7 +19,8 @@ from torch.profiler import ProfilerActivity, profile
 from renderih_tpu_torch.assets import make_synthetic_assets
 from renderih_tpu_torch.config import load_config
 from renderih_tpu_torch.kernels import _build
-from renderih_tpu_torch.serve import GRAPHED_PARTS, BatchingServer, InferenceEngine
+from renderih_tpu_torch.serve import (GRAPHED_PARTS, BatchingServer, InferenceEngine,
+                                     _collector_paused)
 from renderih_tpu_torch.utils import trace
 
 OVERRIDES = {
@@ -28,7 +31,7 @@ OVERRIDES = {
     "train": {"precision": "f32"},
 }
 ENGINE_SPANS = {"engine.predict", "engine.upload", "engine.forward", "engine.copy_back",
-                "engine.concat", "model.encoder", "model.mid_model", "model.decoder"}
+                "model.encoder", "model.mid_model", "model.decoder"}
 
 
 @pytest.fixture(autouse=True)
@@ -187,6 +190,26 @@ def test_an_engine_on_the_cpu_captures_no_graph(engine):
     engine.predict(_images(1))
     assert [trace.counters()[n] for n in names] == before
     assert not any("forward" in vars(getattr(engine.model, p)) for p in GRAPHED_PARTS)
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_the_collector_stays_off_until_the_last_capture_ends(on):
+    """Two captures in flight at once, the first ending first: Python's
+    cyclic collector is off from the first one's start to the second one's
+    end, then as it was before them."""
+    was = gc.isenabled()
+    try:
+        gc.enable() if on else gc.disable()
+        first, second = _collector_paused(), _collector_paused()
+        first.__enter__()
+        assert not gc.isenabled()
+        second.__enter__()
+        first.__exit__(None, None, None)
+        assert not gc.isenabled()
+        second.__exit__(None, None, None)
+        assert gc.isenabled() == on
+    finally:
+        gc.enable() if was else gc.disable()
 
 
 def test_queue_spans_land_on_the_trace_clock(engine, tmp_path):

@@ -244,6 +244,24 @@ def test_image_ops_match_jax():
         atol=2e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_normalize_imagenet_builds_its_constants_once(dtype):
+    """Bit for bit the formula that builds the constants at every call, and
+    a second call on the same dtype and device reuses the tensors of the
+    first, built outside inference mode even when the first call is in it."""
+    img = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (2, 8, 8, 3))).to(dtype)
+    want = ((img - torch.tensor(image.IMAGENET_MEAN, dtype=dtype))
+            / torch.tensor(image.IMAGENET_STD, dtype=dtype))
+    image._IMAGENET.pop((dtype, img.device), None)
+    with torch.inference_mode():
+        first = image.normalize_imagenet(img)
+    consts = image._IMAGENET[(dtype, img.device)]
+    second = image.normalize_imagenet(img)
+    assert all(a is b for a, b in zip(image._IMAGENET[(dtype, img.device)], consts))
+    assert not any(c.is_inference() for c in consts)
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
 def test_host_sampler_order_matches_jax():
     for n, bs, hosts, host in ((37, 5, 1, 0), (100, 8, 3, 1)):
         ours = pipeline.HostSampler(n, bs, host, hosts, seed=4)
